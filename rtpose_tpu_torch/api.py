@@ -1,0 +1,106 @@
+"""High-level assembly: Config -> model + decode spec + dataset.
+
+Counterpart of ``rtpose_tpu/api.py`` for the radar path: the single point
+that interprets the reference config schema (model / assigner / test_cfg /
+data dicts).  ``resolve_device`` is the entry points' device rule: the card
+unless the caller asks for the CPU, and an error, never a silent CPU run,
+when no card is found.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .core.decode import DecodeSpec
+from .data.cruw_pose import CubeGeometry
+from .models import build_detector
+from .registry import DATASETS, build_from_cfg
+
+
+def resolve_device(device: str | None = None) -> torch.device:
+    """'cuda' (the default) or 'cpu'.  Raises when the card is asked for and
+    absent.  Turns TF32 off: the head's float32 output convs would otherwise
+    run in TF32 in cuDNN and move the heatmap argmax."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+@dataclasses.dataclass
+class Assembly:
+    model: Any                     # RadarPoseNet (nn.Module)
+    decode_spec: DecodeSpec
+    one_hm: bool
+    model_cfg: Any = None          # the cfg.model dict the detector was built from
+
+    @property
+    def sparse_head(self) -> bool:
+        """The sparse reg-tower path is single-peak (the only decode ported)
+        and single-task."""
+        return self.one_hm and len(self.model_cfg["pose_head"]["tasks"]) == 1
+
+
+def grid_from_cfg(dataset_cfg: Dict[str, Any]) -> Tuple[int, int, int]:
+    roi = None
+    if dataset_cfg["RDR_CUBE"].get("IS_CONSIDER_ROI", False):
+        roi_type = dataset_cfg["RDR_CUBE"].get("ROI_TYPE",
+                                               dataset_cfg["LABEL"]["ROI_TYPE"])
+        roi = {k: list(v) for k, v in dataset_cfg["ROI"][roi_type].items()}
+    return CubeGeometry.from_roi(roi).grid_zyx
+
+
+def assemble(cfg) -> Assembly:
+    """Build the model (on the CPU, uninitialized weights) and specs from a
+    loaded Config (or plain dict-of-dicts)."""
+    get = cfg.get if hasattr(cfg, "get") else cfg.__getitem__
+    dataset_cfg = dict(get("DATASET"))
+    model_cfg = copy.deepcopy(dict(get("model")))
+    if model_cfg.get("type") != "RadarPoseNet":
+        raise NotImplementedError(f"detector {model_cfg.get('type')!r} is not ported")
+    assigner_cfg = dict(get("train_cfg")["assigner"])
+    test_cfg = dict(get("test_cfg"))
+    mode = get("assigner_mode") or "one_hm"
+
+    grid = grid_from_cfg(dataset_cfg)
+    osf = tuple(int(f) for f in assigner_cfg.get("out_size_factor", (1, 1, 1)))
+    decode_spec = DecodeSpec(
+        grid_zyx=tuple(g // f for g, f in zip(grid, osf)),
+        pc_range_min_xyz=tuple(float(v) for v in test_cfg["pc_range"]),
+        voxel_size_xyz=tuple(float(v) for v in test_cfg["voxel_size"]),
+        out_size_factor_zyx=osf,
+        score_threshold=float(test_cfg.get("score_threshold", 0.0)),
+    )
+    if int(assigner_cfg.get("max_poses", 1)) != 1:
+        raise NotImplementedError("multi-person decode is not ported")
+    return Assembly(model=build_detector(model_cfg), decode_spec=decode_spec,
+                    one_hm=(mode == "one_hm"), model_cfg=model_cfg)
+
+
+def serving_variant(asm: Assembly, final_dtype) -> Assembly:
+    """Assembly copy whose head OUTPUT convs compute in ``final_dtype``
+    (e.g. ``'bfloat16'``); the weights are kept."""
+    cfg = copy.deepcopy(asm.model_cfg)
+    cfg["pose_head"]["final_dtype"] = final_dtype
+    model = copy.deepcopy(asm.model)
+    model.pose_head.set_final_dtype(final_dtype)
+    return dataclasses.replace(asm, model=model, model_cfg=cfg)
+
+
+def build_dataset_from_cfg(data_cfg: Dict[str, Any], split: str,
+                           device_preprocess: bool = False):
+    """Build a dataset from cfg.data.{train,val,test} (reference schema)."""
+    dcfg = dict(data_cfg[split])
+    dcfg["split"] = "train" if split == "train" else "test"
+    if device_preprocess:
+        dcfg["device_preprocess"] = True
+    return build_from_cfg(dcfg, DATASETS)

@@ -1,0 +1,6 @@
+from .cruw_pose import CRUWPoseDataset, CubeGeometry
+from .loader import BatchLoader, shard_indices
+from .synthetic import generate_synthetic_dataset
+
+__all__ = ["CRUWPoseDataset", "CubeGeometry", "BatchLoader", "shard_indices",
+           "generate_synthetic_dataset"]

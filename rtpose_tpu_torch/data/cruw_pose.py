@@ -1,0 +1,257 @@
+"""CRUW-Pose dataset: 4-D radar cubes + 15-joint 3-D pose labels.
+
+Counterpart of ``rtpose_tpu/data/cruw_pose.py`` (reference
+``det3d/datasets/cruw_pose/cruw_pose.py:18-311``), radar path:
+
+* label files ``Train.json`` / ``Test.json`` keyed seq -> frame -> objects;
+  ``file_meta.txt`` mapping seq id -> seq directory name; the same four
+  curation-excluded sequences;
+* the full cube (Z32, Y128, X256) over fixed world axes, cropped to an ROI
+  by nearest-index search, min-max normalized and clamped at zero
+  (``get_cube``, numpy), or shipped raw and ROI-cropped in its on-disk
+  dtype for the card's preprocess kernel (``get_cube_raw``);
+* ``evaluation()``: MPJPE / ABS_MPJPE in millimeters, averaged per joint,
+  per sequence, then overall.
+
+Not ported yet: the native C++ cube loader, the complex-phase cubes, the
+KITTI box-AP report and the LiDAR dataset.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..core.metrics import abs_pjpe, pjpe
+from ..registry import DATASETS
+
+EXCLUDED_SEQS = ("2023_0718_1642", "2023_0726_1602", "2023_0726_1619", "2023_0726_1620")
+
+
+@dataclasses.dataclass
+class CubeGeometry:
+    """Static world-axis geometry of the radar cube and its ROI crop."""
+
+    arr_z: np.ndarray
+    arr_y: np.ndarray
+    arr_x: np.ndarray
+    roi_idx: Tuple[int, int, int, int, int, int]  # (z0, z1, y0, y1, x0, x1) inclusive
+
+    @staticmethod
+    def full_axes() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Default cube axes (cruw_pose.py:38-40)."""
+        return (np.arange(-5.8, 5.8, 11.6 / 32),
+                np.arange(-10.05, 10.05, 20.1 / 128),
+                np.arange(0, 11.6, 11.6 / 256))
+
+    @classmethod
+    def from_roi(cls, roi: Optional[Dict[str, List[float]]]) -> "CubeGeometry":
+        arr_z, arr_y, arr_x = cls.full_axes()
+        if roi is None:
+            return cls(arr_z, arr_y, arr_x,
+                       (0, len(arr_z) - 1, 0, len(arr_y) - 1, 0, len(arr_x) - 1))
+        idx = [0, len(arr_z) - 1, 0, len(arr_y) - 1, 0, len(arr_x) - 1]
+        arrs = {"z": arr_z, "y": arr_y, "x": arr_x}
+        for attr_i, k in enumerate(("z", "y", "x")):
+            v = roi.get(k)
+            if v is None:
+                continue
+            arr, i_min, i_max = _arr_in_roi(arrs[k], v)
+            arrs[k] = arr
+            idx[attr_i * 2] = i_min
+            idx[attr_i * 2 + 1] = i_max
+        return cls(arrs["z"], arrs["y"], arrs["x"], tuple(idx))
+
+    @property
+    def grid_zyx(self) -> Tuple[int, int, int]:
+        return (len(self.arr_z), len(self.arr_y), len(self.arr_x))
+
+
+def _arr_in_roi(arr: np.ndarray, min_max) -> Tuple[np.ndarray, int, int]:
+    """Nearest-index ROI crop (get_arr_in_roi, cruw_pose.py:140-146)."""
+    min_val, max_val = min_max
+    idx_min = int(np.argmin(np.abs(arr - min_val)))
+    idx_max = int(np.argmin(np.abs(arr - max_val)))
+    if max_val > arr[-1]:
+        return arr[idx_min : idx_max + 1], idx_min, idx_max
+    return arr[idx_min:idx_max], idx_min, idx_max - 1
+
+
+@DATASETS.register_module(name="CRUW_POSE_Dataset")
+class CRUWPoseDataset:
+    """Map-style dataset yielding fixed-shape numpy samples."""
+
+    NUM_JOINTS = 15
+
+    def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
+                 pipeline=None, split: str = "train",
+                 device_preprocess: bool = False):
+        ds = cfg["DATASET"]
+        self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
+        if "complex" in self.rdr_type:
+            raise NotImplementedError("complex radar cubes are not ported")
+        if pipeline:
+            raise NotImplementedError("dataset pipelines are not ported")
+        # device_preprocess: items carry the ROI-cropped RAW cube in the
+        # on-disk dtype ('rdr_raw', (D, Z', Y', X')); cast + normalize +
+        # clamp + channels-last run on the card (ops/preprocess.py)
+        self.device_preprocess = bool(device_preprocess)
+        self.cfg = cfg
+        self.split = split
+        self.class_names = class_names
+        self.root_dir = ds["DIR"]["ROOT_DIR"]
+        self.with_doppler = "d" in self.rdr_type
+        self.rdr_dirname = ds["DIR"].get(
+            "RDR_DIR", "DZYX_npy_f16" if self.with_doppler else "npy")
+
+        roi = None
+        if ds["RDR_CUBE"].get("IS_CONSIDER_ROI", False):
+            roi_type = ds["RDR_CUBE"].get("ROI_TYPE", ds["LABEL"].get("ROI_TYPE"))
+            roi = {k: list(v) for k, v in ds["ROI"][roi_type].items()}
+        self.geom = CubeGeometry.from_roi(roi)
+        # DIR.CUBES_ARE_ROI: the on-disk cubes hold only the ROI region, so
+        # the load-time crop is the identity
+        if ds["DIR"].get("CUBES_ARE_ROI", False):
+            gz, gy, gx = self.geom.grid_zyx
+            self.cube_roi_idx = (0, gz - 1, 0, gy - 1, 0, gx - 1)
+        else:
+            self.cube_roi_idx = self.geom.roi_idx
+
+        nv_key = "DZYX" if self.with_doppler else "RDR_CUBE"
+        n0, n1 = [float(v) for v in ds[nv_key]["NORMALIZING_VALUE"]]
+        self.norm_start, self.norm_scale = n0, n1 - n0
+
+        self.seq_id_to_name = self._read_meta(
+            os.path.join(self.root_dir, ds["DIR"]["META_FILE"]))
+        self.label_file = os.path.join(self.root_dir, label_file)
+        self.samples = self._load_samples(self.label_file)
+
+    @staticmethod
+    def _read_meta(path: str) -> Dict[str, str]:
+        out = {}
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    seq_id, seq_name = line.split(",")
+                    out[seq_id] = seq_name
+        return out
+
+    def _load_samples(self, label_file: str) -> List[dict]:
+        with open(label_file) as f:
+            by_seq = json.load(f)
+        samples = []
+        for seq, frames in by_seq.items():
+            if self.seq_id_to_name.get(seq) in EXCLUDED_SEQS:
+                continue
+            for frame, objs in frames.items():
+                for obj in objs:
+                    samples.append(dict(seq=seq, frame=frame,
+                                        rdr_frame=obj["Radar_frameID"],
+                                        poses=[obj["pose"]]))
+        return samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _cube_path(self, seq: str, rdr_frame: str) -> str:
+        return os.path.join(self.root_dir, self.seq_id_to_name[seq],
+                            self.rdr_dirname, f"{rdr_frame}.npy")
+
+    def get_cube(self, seq: str, rdr_frame: str) -> np.ndarray:
+        """Load, ROI-crop, normalize: channels-last (Z, Y, X, D) float32
+        (the reference's three-pass numpy math, cruw_pose.py:167-185)."""
+        arr = np.load(self._cube_path(seq, rdr_frame)).astype(np.float32)
+        z0, z1, y0, y1, x0, x1 = self.cube_roi_idx
+        if self.with_doppler:
+            arr = arr[:, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
+            arr = np.transpose(arr, (1, 2, 3, 0))
+        else:
+            arr = arr[z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1][..., None]
+        arr = (arr - self.norm_start) / self.norm_scale
+        np.maximum(arr, 0.0, out=arr)
+        return arr
+
+    def get_cube_raw(self, seq: str, rdr_frame: str) -> np.ndarray:
+        """ROI-cropped cube in the on-disk dtype, (D, Z', Y', X'): no cast,
+        no normalize, no transpose — those run on the card."""
+        arr = np.load(self._cube_path(seq, rdr_frame))
+        z0, z1, y0, y1, x0, x1 = self.cube_roi_idx
+        if self.with_doppler:
+            arr = arr[:, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
+        else:
+            arr = arr[None, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
+        return np.ascontiguousarray(arr)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        s = self.samples[idx]
+        item = {
+            "meta": dict(seq=s["seq"], frame=s["frame"], rdr_frame=s["rdr_frame"]),
+            "poses": np.asarray(s["poses"], np.float32),     # (1, 15, 3)
+            "num_poses": np.int32(1),
+            "mode": self.split,
+        }
+        if self.device_preprocess:
+            item["rdr_raw"] = self.get_cube_raw(s["seq"], s["rdr_frame"])
+        else:
+            item["rdr_tensor"] = self.get_cube(s["seq"], s["rdr_frame"])
+        return item
+
+    def evaluation(self, detections: Dict[str, dict], output_dir=None,
+                   testset: bool = False):
+        """MPJPE report, parity with cruw_pose.py:277-311.
+
+        ``detections``: {'seq/frame/rdr_frame': {'keypoints':
+        [(id, x, y, z, score), ...]}} — joint order 0..14.
+        """
+        with open(self.label_file) as f:
+            gt = json.load(f)
+        seq_mpjpe = defaultdict(list)
+        seq_abs = defaultdict(list)
+        for key, val in detections.items():
+            seq, frame, _ = key.split("/")
+            objs = gt[seq][frame]
+            kp = np.asarray([p[1:4] for p in val["keypoints"]], np.float64)
+            if len(objs) == 1 and kp.shape[0] <= self.NUM_JOINTS:
+                # single-person path (cruw_pose.py:288-295 reads objects[0])
+                gt_points = np.asarray(objs[0]["pose"], np.float64)
+                seq_mpjpe[seq].append(pjpe(kp, gt_points))
+                seq_abs[seq].append(abs_pjpe(kp, gt_points))
+                continue
+            # several people: greedily match each GT object to the nearest
+            # unused predicted pelvis, score every matched pair
+            preds = kp[: (kp.shape[0] // self.NUM_JOINTS) * self.NUM_JOINTS]
+            preds = preds.reshape(-1, self.NUM_JOINTS, 3)
+            used = set()
+            for g in (np.asarray(o["pose"], np.float64) for o in objs):
+                cands = [(np.linalg.norm(p[0] - g[0]), i)
+                         for i, p in enumerate(preds) if i not in used]
+                if not cands:
+                    break
+                _, i = min(cands)
+                used.add(i)
+                seq_mpjpe[seq].append(pjpe(preds[i], g))
+                seq_abs[seq].append(abs_pjpe(preds[i], g))
+
+        seq_res = {}
+        for seq, vals in seq_mpjpe.items():
+            name = self.seq_id_to_name[seq]
+            m = np.mean(np.asarray(vals), axis=0) * 1000.0
+            a = np.mean(np.asarray(seq_abs[seq]), axis=0) * 1000.0
+            entry = {"MPJPE": float(np.mean(m)), "ABS_MPJPE": float(np.mean(a))}
+            for j in range(m.shape[0]):
+                entry[f"PJPE_{j}"] = float(m[j])
+                entry[f"ABS_PJPE_{j}"] = float(a[j])
+            seq_res[name] = entry
+
+        total = {"MPJPE": float(np.mean([v["MPJPE"] for v in seq_res.values()])),
+                 "ABS_MPJPE": float(np.mean([v["ABS_MPJPE"] for v in seq_res.values()]))}
+        for j in range(self.NUM_JOINTS):
+            total[f"PJPE_{j}"] = float(np.mean([v[f"PJPE_{j}"] for v in seq_res.values()]))
+            total[f"ABS_PJPE_{j}"] = float(np.mean([v[f"ABS_PJPE_{j}"] for v in seq_res.values()]))
+        return {"results": total, "seq_results": {**seq_res, "ALL": total}}, None

@@ -1,0 +1,109 @@
+"""Carry JAX parameters into the port's ``state_dict``.
+
+``state_dict_from_jax(params)`` takes the ``rtpose_tpu`` RadarPoseNet
+params tree (nested dicts of numpy arrays, with or without the top-level
+'params' key) and returns the port's state dict.  Keys follow the reference
+torch model — the names ``rtpose_tpu/engine/torch_import.py::
+build_name_map`` maps the other way, so a port checkpoint also loads back
+into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
+kx); GroupNorm ``scale`` -> ``weight``.
+
+Checkpoints are ``.pth`` files ``{"meta": {...}, "state_dict": {...}}``,
+the reference format.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from collections.abc import Mapping
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+_RULES = [
+    (re.compile(r"^transition(\d+)_b(\d+)_j(\d+)$"), r"transition\1.\2.\3"),
+    (re.compile(r"^transition(\d+)_b(\d+)$"), r"transition\1.\2"),
+    (re.compile(r"^(stage\d+)_m(\d+)$"), r"\1.\2"),
+    (re.compile(r"^branch(\d+)_block(\d+)$"), r"branches.\1.\2"),
+    (re.compile(r"^fuse(\d+)_(\d+)_k(\d+)$"), r"fuse_layers.\1.\2.\3"),
+    (re.compile(r"^fuse(\d+)_(\d+)$"), r"fuse_layers.\1.\2"),
+    (re.compile(r"^task(\d+)$"), r"tasks.\1"),
+]
+
+
+def _segment(name: str, parent: str, siblings: List[str]) -> str:
+    """One flax path segment -> its torch module-path segment."""
+    if name == "backbone_m":
+        return "backbone"
+    if name == "head_m":
+        return "pose_head"
+    if name == "shared_gn":
+        return "shared_conv.0"
+    if name == "shared_conv" and parent == "head_m":
+        return "shared_conv.1"
+    if name in ("GroupNorm8_0", "TorchConv3d_0"):
+        # SingleConv (conv2/conv3 of a ResNetBlock) names its parts; the
+        # GN-conv Sequentials of transitions and fuses number them
+        if parent in ("conv2", "conv3"):
+            return "groupnorm" if name == "GroupNorm8_0" else "conv"
+        return "0" if name == "GroupNorm8_0" else "1"
+    m = re.match(r"^(\w+?)_(conv(\d+)|out)$", name)
+    if m and parent.startswith("task"):
+        head = m.group(1)
+        if m.group(3) is not None:
+            return f"{head}.{2 * int(m.group(3))}"
+        n_conv = sum(1 for s in siblings if re.match(rf"^{head}_conv\d+$", s))
+        return f"{head}.{2 * n_conv}"
+    for pat, rep in _RULES:
+        if pat.match(name):
+            return pat.sub(rep, name)
+    return name
+
+
+def _to_torch(value) -> torch.Tensor:
+    a = np.array(value, dtype=np.float32)
+    if a.ndim == 5:  # conv kernel (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky, kx)
+        a = np.transpose(a, (4, 3, 0, 1, 2))
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """flax RadarPoseNet params -> the port's state dict."""
+    tree = params.get("params", params)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def walk(node: Mapping, prefix: List[str], parent: str):
+        names = list(node)
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + [_segment(name, parent, names)], name)
+                continue
+            if name in ("final_conv_kernel", "final_conv_bias"):
+                key = prefix + ["final_conv", "weight" if name.endswith("kernel") else "bias"]
+            else:
+                key = prefix + [_LEAF[name]]
+            out[".".join(key)] = _to_torch(value)
+
+    walk(tree, [], "")
+    return out
+
+
+def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
+                    meta: Dict[str, Any] | None = None) -> str:
+    """Write a reference-format ``.pth``: ``{"meta", "state_dict"}``."""
+    torch.save({"meta": dict(meta or {}),
+                "state_dict": OrderedDict((k, v.detach().cpu())
+                                          for k, v in state_dict.items())}, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a ``.pth`` checkpoint (tensors only, no pickled code)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
+        raise ValueError(f"{path}: not a {{'meta', 'state_dict'}} checkpoint")
+    return ckpt

@@ -1,0 +1,136 @@
+"""CenterPoint/CenterNet-style pose head (PyTorch, channels-last).
+
+Counterpart of ``rtpose_tpu/models/center_head.py`` (reference
+``det3d/models/pose_heads/center_head.py``):
+
+* optional shared conv (GN8 + 3x3x3 conv + ReLU) when the backbone output
+  width differs from ``share_conv_channel``;
+* per-task ``SepHead``: each named head ('reg', 'hm', ...) is a conv tower —
+  (num_conv - 1) x [3x3x3 conv(head_conv) + ReLU] then a final 3x3x3 conv
+  to the target width, computed in ``final_dtype`` (float32 by default);
+  the heatmap head's final bias initializes to ``init_bias`` = -2.19;
+* ``predict`` = dense decode (``core.decode.decode_pose_preds``).
+
+The losses wait for the training slice of the port; ``weight`` and
+``code_weights`` are kept for it.  State-dict keys follow the reference:
+``tasks.{t}.{head}.{0,2,..}.{weight,bias}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..core.decode import decode_pose_preds
+from ..registry import HEADS
+from .layers import GroupNorm8, TorchConv3d, canonical_dtype
+
+
+class SepHead(nn.Module):
+    """Separate conv tower per named output head."""
+
+    def __init__(self, in_channels: int, heads: Dict[str, Tuple[int, int]],
+                 head_conv: int = 64, final_kernel: int = 3,
+                 init_bias: float = -2.19, dtype=None,
+                 final_dtype=torch.float32):
+        super().__init__()
+        self.heads = dict(heads)
+        self.init_bias = init_bias
+        self.final_dtype = canonical_dtype(final_dtype)
+        for head, (classes, num_conv) in self.heads.items():
+            layers = []
+            ch = in_channels
+            for _ in range(num_conv - 1):
+                layers += [TorchConv3d(ch, head_conv, final_kernel, dtype=dtype), nn.ReLU()]
+                ch = head_conv
+            layers.append(TorchConv3d(ch, classes, final_kernel,
+                                      dtype=self.final_dtype))
+            setattr(self, head, nn.Sequential(*layers))
+
+    def set_final_dtype(self, final_dtype) -> None:
+        """Compute dtype of the output convs (serving-side knob)."""
+        self.final_dtype = canonical_dtype(final_dtype)
+        for head in self.heads:
+            getattr(self, head)[-1].dtype = self.final_dtype
+
+    def forward(self, x: torch.Tensor, branch: Optional[str] = None,
+                inner_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """All heads, or only ``branch``.  ``inner_mask`` zeroes the
+        intermediate activations outside the original volume, so a small
+        patch reproduces the dense path's inter-conv zero padding."""
+        out = {}
+        fdt = self.final_dtype
+        for head in self.heads:
+            if branch is not None and head != branch:
+                continue
+            tower = getattr(self, head)
+            h = x
+            for layer in tower[:-1]:
+                h = layer(h)
+                if isinstance(layer, nn.ReLU) and inner_mask is not None:
+                    h = h * inner_mask
+            # the output conv defaults to float32: heatmap logits feed the
+            # argmax and log terms, the regression an L1
+            h = h.float() if fdt in (None, torch.float32) else h
+            out[head] = tower[-1](h).float()
+        return out
+
+
+@HEADS.register_module
+class CenterHead(nn.Module):
+    """Multi-task center head."""
+
+    def __init__(self, tasks: Sequence[dict], in_channels: int = 128,
+                 share_conv_channel: int = 64,
+                 common_heads: Optional[Dict[str, Tuple[int, int]]] = None,
+                 weight: float = 0.1, code_weights: Sequence[float] = (),
+                 init_bias: float = -2.19, num_hm_conv: int = 2,
+                 dataset: str = "cruw_pose", dcn_head: bool = False,
+                 dtype=None, final_dtype=torch.float32):
+        super().__init__()
+        if dcn_head:
+            raise NotImplementedError("the deformable-conv head is not ported")
+        self.tasks_cfg = [dict(t) for t in tasks]
+        self.weight = weight
+        self.code_weights = tuple(code_weights)
+        ch = in_channels
+        if in_channels != share_conv_channel:
+            self.shared_conv = nn.Sequential(
+                GroupNorm8(in_channels),
+                TorchConv3d(in_channels, share_conv_channel, 3, bias=False,
+                            dtype=dtype),
+                nn.ReLU())
+            ch = share_conv_channel
+        else:
+            self.shared_conv = None
+        task_heads = []
+        for num_cls in self.num_classes:
+            heads = {k: tuple(v) for k, v in (common_heads or {}).items()}
+            heads["hm"] = (num_cls, num_hm_conv)
+            task_heads.append(SepHead(ch, heads, head_conv=32, final_kernel=3,
+                                      init_bias=init_bias, dtype=dtype,
+                                      final_dtype=final_dtype))
+        self.tasks = nn.ModuleList(task_heads)
+
+    @property
+    def num_classes(self) -> List[int]:
+        return [len(t["class_names"]) for t in self.tasks_cfg]
+
+    def set_final_dtype(self, final_dtype) -> None:
+        for t in self.tasks:
+            t.set_final_dtype(final_dtype)
+
+    def forward(self, x: torch.Tensor, branch: Optional[str] = None,
+                inner_mask: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+        """Dense heads, or a single ``branch``; ``inner_mask`` marks in-volume
+        positions of small sparse-inference patches."""
+        if self.shared_conv is not None:
+            x = self.shared_conv(x)
+        return [t(x, branch=branch, inner_mask=inner_mask) for t in self.tasks]
+
+    def predict(self, preds_dicts: List[Dict[str, torch.Tensor]], decode_spec):
+        """Decode each task's dense output to (kpts, scores, labels)."""
+        return [decode_pose_preds(p["hm"], p["reg"], decode_spec)
+                for p in preds_dicts]

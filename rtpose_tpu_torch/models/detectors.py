@@ -1,0 +1,121 @@
+"""Detector composition: reader -> backbone -> [neck] -> pose head.
+
+Counterpart of ``rtpose_tpu/models/detectors.py::RadarPoseNet`` (reference
+``radar_pose_net.py:10-46``): identity reader over the dense radar cube,
+HRNet3D backbone, CenterHead.  Inputs are (B, Z, Y, X, C) channels-last
+cubes, heatmaps come back (B, Z, Y, X, C) — the JAX package's layouts.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..core.decode import flat_argmax
+from ..registry import BACKBONES, DETECTORS, HEADS, READERS, build_from_cfg
+from .center_head import SepHead
+from .layers import GroupNorm8, TorchConv3d
+
+
+def build_submodule(cfg, registry, extra: dict | None = None):
+    if cfg is None:
+        return None
+    cfg = dict(cfg)
+    if extra:
+        cfg.update(extra)
+    return build_from_cfg(cfg, registry)
+
+
+def _window(center: torch.Tensor, size: int):
+    """Positions center-2..center+2 clamped into [0, size) and their
+    in-volume mask: (B, 5) each."""
+    pos = center[:, None] - 2 + torch.arange(5, device=center.device)
+    return pos.clamp(0, size - 1), (pos >= 0) & (pos < size)
+
+
+@DETECTORS.register_module
+class RadarPoseNet(nn.Module):
+    """HRRadarPose detector over a dense (B, Z, Y, X, C) radar cube."""
+
+    def __init__(self, reader: dict = None, backbone: dict = None,
+                 pose_head: dict = None, neck: Optional[dict] = None,
+                 pretrained: Optional[str] = None):
+        super().__init__()
+        if neck is not None:
+            raise NotImplementedError("necks are not ported")
+        self.reader = build_submodule(reader, READERS)
+        self.backbone = build_submodule(backbone, BACKBONES)
+        self.pose_head = build_submodule(pose_head, HEADS)
+
+    def extract_feat(self, rdr_tensor: torch.Tensor) -> torch.Tensor:
+        return self.backbone(self.reader(rdr_tensor))
+
+    def forward(self, rdr_tensor: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        return self.pose_head(self.extract_feat(rdr_tensor))
+
+    def _reg_patches(self, feat: torch.Tensor, z, y, x, zyx) -> torch.Tensor:
+        """Reg-tower values at voxel coords (B,) via 5^3 receptive-field
+        patches: the head's two 3x3x3 convs see exactly the 5^3 cube around
+        a voxel, with zeros outside the volume (detectors.py:90-144)."""
+        Z, Y, X = zyx
+        B = feat.shape[0]
+        if min(Z, Y, X) < 5:
+            # grid smaller than the receptive field: dense reg + gather
+            reg = self.pose_head(feat, branch="reg")[0]["reg"]
+            flat = (z * Y + y) * X + x
+            dense = reg.reshape(B, -1, reg.shape[-1])
+            return dense[torch.arange(B, device=feat.device), flat]
+        pz, mz = _window(z, Z)
+        py, my = _window(y, Y)
+        px, mx = _window(x, X)
+        bi = torch.arange(B, device=feat.device)[:, None, None, None]
+        patches = feat[bi, pz[:, :, None, None], py[:, None, :, None],
+                       px[:, None, None, :]]                     # (B, 5, 5, 5, C)
+        mask = (mz[:, :, None, None] & my[:, None, :, None]
+                & mx[:, None, None, :])[..., None].to(feat.dtype)
+        reg_p = self.pose_head(patches * mask, branch="reg",
+                               inner_mask=mask)[0]["reg"]
+        return reg_p[:, 2, 2, 2, :]
+
+    def predict_sparse(self, rdr_tensor: torch.Tensor):
+        """Sparse single-peak inference: dense heatmap, reg tower evaluated
+        only on the 5^3 patch around each sample's heatmap peak.
+
+        Returns (hm (B, Z, Y, X, C) logits, reg_at_peak (B, D), peak_ind (B,)).
+        """
+        feat = self.extract_feat(rdr_tensor)
+        hm = self.pose_head(feat, branch="hm")[0]["hm"]
+        B, Z, Y, X, C = hm.shape
+        flat = flat_argmax(hm.reshape(B, -1, C)[..., 0])        # pelvis class
+        z = flat // (Y * X)
+        y = (flat % (Y * X)) // X
+        x = flat % X
+        return hm, self._reg_patches(feat, z, y, x, (Z, Y, X)), flat
+
+
+def build_detector(cfg: dict):
+    """Build a detector from a ``model`` config dict."""
+    return build_from_cfg(dict(cfg), DETECTORS)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random initialization: He-normal conv kernels (fan-in), zero
+    biases except the heatmap output's ``init_bias``, unit GroupNorm scales.
+    Draws happen on the CPU from ``generator`` in module order."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchConv3d):
+                fan_in = m.weight[0].numel()
+                w = torch.randn(m.weight.shape, generator=generator) * (2.0 / fan_in) ** 0.5
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, GroupNorm8):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, SepHead) and "hm" in m.heads:
+                m.hm[-1].bias.fill_(m.init_bias)
+    return model

@@ -1,0 +1,109 @@
+"""Build the CUDA kernels under ``csrc/`` and load them with ctypes.
+
+Each source is a plain-C-interface ``.cu`` file compiled by ``nvcc`` for
+``sm_90a`` into its own shared library under ``rtpose_tpu_torch/build/``
+(listed in ``.gitignore``).  The first kernel launch builds every source
+that has no library yet: one ``nvcc`` per source, all started together.
+Libraries are named by a hash of their source, so an edited kernel is
+rebuilt and a stale one is never loaded.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library name -> (source file, exported function, its argument types)
+KERNELS = {
+    "preprocess": ("preprocess.cu", "rtpose_preprocess",
+                   [_P, _P] + [_I] * 12 + [_F, _F, _P]),
+    "conv_k3": ("conv_k3.cu", "rtpose_conv3d_k3",
+                [_P, _P, _P, _P] + [_I] * 4 + [_P]),
+}
+
+_lock = threading.Lock()
+_funcs: Dict[str, ctypes._CFuncPtr] = {}
+# library name -> {"seconds": build wall time (0.0 if cached), "log": nvcc output}
+build_log: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.isfile(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(src: str) -> str:
+    with open(os.path.join(CSRC_DIR, src), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{os.path.splitext(src)[0]}-{digest[:12]}.so")
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every kernel library not built yet (in parallel) and load
+    all of them.  Raises with the compiler's output if a build fails."""
+    with _lock:
+        pending = [n for n in KERNELS if n not in _funcs]
+        if not pending:
+            return build_log
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name in pending:
+            src, _, _ = KERNELS[name]
+            path = _lib_path(src)
+            if os.path.isfile(path):
+                build_log[name] = {"seconds": 0.0, "log": "cached"}
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, path, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, path, t0) in procs.items():
+            log, _ = proc.communicate()
+            build_log[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for name in pending:
+            src, fn_name, argtypes = KERNELS[name]
+            fn = getattr(ctypes.CDLL(_lib_path(src)), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _funcs[name] = fn
+        return build_log
+
+
+def kernel(name: str):
+    """The ctypes function of kernel library ``name``, built on first use."""
+    if name not in _funcs:
+        build_all()
+    return _funcs[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")

@@ -1,0 +1,101 @@
+"""Evaluate a checkpoint with the port (PyTorch; CUDA by default).
+
+Same CLI as ``tools/test.py`` plus ``--device``::
+
+    python -m rtpose_tpu_torch.tools.test CONFIG --checkpoint CKPT.pth \
+        [--work_dir DIR] [--testset] [--speed_test] [--device_preprocess] \
+        [--final_dtype {bfloat16,float32}] [--device {cuda,cpu}]
+
+``--checkpoint`` is a reference-format ``.pth`` (``{"meta", "state_dict"}``).
+Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
+``<ckpt>_seq_results_{split}.json`` and prints ``Evaluation MPJPE: ...``;
+``--speed_test`` runs batch 1 and prints ``Total time per frame``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import logging
+import os
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Test a detector (PyTorch port)")
+    p.add_argument("config", help="config file path")
+    p.add_argument("--work_dir", help="output dir")
+    p.add_argument("--checkpoint", required=True, help="checkpoint .pth file")
+    p.add_argument("--speed_test", action="store_true")
+    p.add_argument("--testset", action="store_true")
+    p.add_argument("--device_preprocess", action="store_true",
+                   help="ship ROI-cropped RAW cubes; cast/normalize/layout "
+                        "run on the card (preprocess kernel)")
+    p.add_argument("--final_dtype", default=None, choices=("bfloat16", "float32"),
+                   help="override the head OUTPUT convs' compute dtype")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="run on the card (default) or the CPU")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run the evaluation; returns the results dict (also printed)."""
+    args = parse_args(argv)
+    from rtpose_tpu_torch.api import (assemble, build_dataset_from_cfg,
+                                      resolve_device, serving_variant)
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import BatchLoader
+    from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step,
+                                         run_eval, save_predictions)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    logger = logging.getLogger("rtpose_tpu_torch")
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    work_dir = args.work_dir or os.path.dirname(os.path.abspath(args.checkpoint))
+    asm = assemble(cfg)
+    ckpt = load_checkpoint(args.checkpoint)
+    asm.model.load_state_dict(ckpt["state_dict"])
+    if args.final_dtype:
+        asm = serving_variant(asm, args.final_dtype)
+        logger.info(f"head output convs overridden to {args.final_dtype}")
+    model = asm.model.to(device).eval()
+    logger.info("Model parameter count: "
+                f"{sum(p.numel() for p in model.parameters())}")
+
+    split = "test" if args.testset else "val"
+    print("Use Test Set" if args.testset else "Use Val Set")
+    dataset = build_dataset_from_cfg(cfg.data, split,
+                                     device_preprocess=args.device_preprocess)
+    preprocess = ((dataset.norm_start, dataset.norm_scale)
+                  if dataset.device_preprocess else None)
+    batch_size = 1 if args.speed_test else int(cfg.data["samples_per_gpu"])
+    loader = BatchLoader(dataset, batch_size=batch_size,
+                         num_workers=int(cfg.data.get("workers_per_gpu", 0)))
+    eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
+                               preprocess=preprocess)
+    detections, sec_per_frame = run_eval(
+        eval_step, loader, asm.decode_spec, device=device, one_hm=asm.one_hm,
+        speed_test=args.speed_test, logger=logger)
+    if sec_per_frame is not None:
+        print(f"\n Total time per frame: {sec_per_frame}")
+
+    os.makedirs(work_dir, exist_ok=True)
+    ckpt_name = os.path.basename(os.path.normpath(args.checkpoint)).split(".")[0]
+    tag = "test" if args.testset else "train"
+    save_predictions(detections, work_dir, ckpt_name, tag)
+    result_dict, _ = dataset.evaluation(copy.deepcopy(detections),
+                                        output_dir=work_dir, testset=args.testset)
+    for k, v in result_dict["results"].items():
+        print(f"Evaluation {k}: {v}")
+    seq_path = os.path.join(work_dir, ckpt_name, f"{ckpt_name}_seq_results_{tag}.json")
+    with open(seq_path, "w") as f:
+        json.dump(dict(sorted(result_dict["seq_results"].items())), f, indent=2)
+    sys.stdout.flush()
+    return dict(results=result_dict["results"], sec_per_frame=sec_per_frame,
+                detections=detections)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""The port stands alone: importing ``rtpose_tpu_torch`` (and its CLI and
+``chip_smoke.py``) loads no JAX, flax, optax, orbax or ``rtpose_tpu``
+module, and no source file of the package imports them."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rtpose_tpu")
+
+_IMPORT = re.compile(r"^\s*(?:from\s+(\.*[\w.]*)\s+import|import\s+([\w.]+))", re.M)
+
+
+def _top_level(name: str) -> str:
+    return name.lstrip(".").split(".")[0]
+
+
+def test_fresh_interpreter_loads_no_jax():
+    code = (
+        "import sys, rtpose_tpu_torch, rtpose_tpu_torch.tools.test, chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(','.join(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"
+
+
+def test_no_source_file_imports_jax():
+    roots = [os.path.join(REPO, "rtpose_tpu_torch")]
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root in roots:
+        for dp, _, fs in os.walk(root):
+            files += [os.path.join(dp, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        src = open(path).read()
+        for m in _IMPORT.finditer(src):
+            name = m.group(1) or m.group(2)
+            if name.startswith("."):
+                continue          # relative: inside the package
+            assert _top_level(name) not in FORBIDDEN, f"{path}: imports {name}"

@@ -1,0 +1,157 @@
+"""Sparse predict and decode: the port's ``predict_sparse`` equals its dense
+forward at the peak (including peaks on the volume's faces and corners),
+and the decode / post-processing / metric functions equal rtpose_tpu's on
+the same arrays, ties included.
+
+Tolerances: sparse vs dense within the port, 1e-5 of max|reg| (the patch
+and the full volume sum the same products, in float32); decode against
+JAX, 1e-6 m / 1e-6 on scores (float32 rounding of the same formulas);
+labels and indices exact.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from rtpose_tpu.core import decode as jdec
+from rtpose_tpu.core import metrics as jmet
+from rtpose_tpu_torch.core import decode as tdec
+from rtpose_tpu_torch.core import metrics as tmet
+from rtpose_tpu_torch.models import build_detector, init_weights
+
+GRID = (8, 16, 32)
+SPEC = dict(grid_zyx=GRID, pc_range_min_xyz=(0.0, -2.0, -1.0),
+            voxel_size_xyz=(0.1, 0.25, 0.25))
+CFG = dict(type="RadarPoseNet", reader=dict(type="RadarFeatureNet"),
+           backbone=dict(type="HRNet3D", backbone_cfg="hr_tiny_feat32_zyx_l4_in32",
+                         final_conv_in=192, final_conv_out=128),
+           pose_head=dict(type="CenterHead",
+                          tasks=[dict(num_class=1, class_names=["Pelvis"])],
+                          in_channels=128, share_conv_channel=128,
+                          common_heads={"reg": (45, 2)}))
+
+
+@pytest.fixture(scope="module")
+def model():
+    return init_weights(build_detector(CFG), torch.Generator().manual_seed(0)).eval()
+
+
+def test_predict_sparse_equals_dense(model):
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, *GRID, 32)).astype(np.float32))
+    with torch.no_grad():
+        dense = model(x)[0]
+        hm, reg_at_peak, peak = model.predict_sparse(x)
+    torch.testing.assert_close(hm, dense["hm"], rtol=0, atol=0)
+    flat = dense["hm"].reshape(3, -1).argmax(dim=1)
+    assert torch.equal(peak, flat)
+    want = dense["reg"].reshape(3, -1, 45)[torch.arange(3), peak]
+    scale = want.abs().max().item()
+    torch.testing.assert_close(reg_at_peak, want, rtol=0, atol=1e-5 * scale)
+    kd = tdec.decode_pose_preds(dense["hm"], dense["reg"], tdec.DecodeSpec(**SPEC))
+    ks = tdec.decode_pose_sparse(hm, reg_at_peak, peak, tdec.DecodeSpec(**SPEC))
+    torch.testing.assert_close(ks[0], kd[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(ks[1], kd[1])
+    assert torch.equal(ks[2], kd[2])
+
+
+def test_reg_patches_at_faces_and_corners(model):
+    """The 5^3 patch reproduces the dense conv's zero padding at the volume
+    edges: corners, faces and interior points."""
+    Z, Y, X = GRID
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, *GRID, 32)).astype(np.float32))
+    pts = [(0, 0, 0), (Z - 1, Y - 1, X - 1), (0, Y - 1, 3), (1, 0, X - 2),
+           (Z - 2, 7, 0), (4, 8, 16), (2, 1, 30)]
+    with torch.no_grad():
+        feat = model.extract_feat(x)
+        dense = model.pose_head(feat, branch="reg")[0]["reg"][0]
+        n = len(pts)
+        z, y, xx = (torch.tensor(c) for c in zip(*pts))
+        got = model._reg_patches(feat.expand(n, -1, -1, -1, -1), z, y, xx, GRID)
+    want = torch.stack([dense[p] for p in pts])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_small_grid_takes_the_dense_path(model):
+    """A grid smaller than the 5^3 receptive field: dense reg + gather."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 4, 8, 8, 32)).astype(np.float32))
+    with torch.no_grad():
+        dense = model(x)[0]
+        _, reg_at_peak, peak = model.predict_sparse(x)
+    want = dense["reg"].reshape(2, -1, 45)[torch.arange(2), peak]
+    torch.testing.assert_close(reg_at_peak, want, rtol=0, atol=0)
+
+
+def _hm_with_ties(B, C, rng):
+    hm = rng.normal(size=(B, *GRID, C)).astype(np.float32)
+    flat = hm.reshape(B, -1, C)
+    for b in range(B):
+        for c in range(C):
+            i, j = sorted(rng.choice(flat.shape[1], 2, replace=False))
+            flat[b, i, c] = flat[b, j, c] = 10.0     # a tie: the first wins
+    return hm
+
+
+def test_flat_argmax_ties():
+    rng = np.random.default_rng(3)
+    v = rng.integers(0, 4, size=(5, 64)).astype(np.float32)   # many ties
+    got = tdec.flat_argmax(torch.from_numpy(v), dim=1).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jdec.flat_argmax(jnp.asarray(v))))
+    np.testing.assert_array_equal(got, v.argmax(axis=1))
+
+
+@pytest.mark.parametrize("K", [15, 1])
+def test_decode_dense_matches_jax(K):
+    """One-heatmap head (C = 1, 45-dim reg) and per-joint heads (C = 15,
+    3-dim reg)."""
+    rng = np.random.default_rng(4)
+    C = 1 if K == 15 else 15
+    hm = _hm_with_ties(2, C, rng)
+    reg = rng.normal(size=(2, *GRID, 3 * K)).astype(np.float32)
+    want = jdec.decode_pose_preds(jnp.asarray(hm), jnp.asarray(reg), jdec.DecodeSpec(**SPEC))
+    got = tdec.decode_pose_preds(torch.from_numpy(hm), torch.from_numpy(reg),
+                                 tdec.DecodeSpec(**SPEC))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_decode_sparse_matches_jax():
+    rng = np.random.default_rng(5)
+    hm = _hm_with_ties(3, 1, rng)
+    peak = np.array(jdec.flat_argmax(jnp.asarray(hm.reshape(3, -1))))
+    reg = rng.normal(size=(3, 45)).astype(np.float32)
+    want = jdec.decode_pose_sparse(jnp.asarray(hm), jnp.asarray(reg),
+                                   jnp.asarray(peak), jdec.DecodeSpec(**SPEC))
+    got = tdec.decode_pose_sparse(torch.from_numpy(hm), torch.from_numpy(reg),
+                                  torch.from_numpy(peak), tdec.DecodeSpec(**SPEC))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("threshold,one_hm", [(0.0, True), (0.5, True), (0.5, False)])
+def test_post_process_matches_jax(threshold, one_hm):
+    """Threshold rules, including a score that underflowed to exactly 0.0
+    (kept when the threshold is <= 0)."""
+    rng = np.random.default_rng(6)
+    kpts = rng.normal(size=(3, 15, 3)).astype(np.float32)
+    scores = rng.uniform(size=(3, 15)).astype(np.float32)
+    scores[0, 0] = 0.0
+    labels = np.tile(np.arange(15, dtype=np.int32), (3, 1))
+    metas = [{"seq": "0", "frame": f"f{b}", "rdr_frame": str(b)} for b in range(3)]
+    want = jdec.post_process_pose(kpts, scores, labels, jdec.DecodeSpec(
+        **SPEC, score_threshold=threshold), metas=metas, one_hm=one_hm)
+    got = tdec.post_process_pose(kpts, scores, labels, tdec.DecodeSpec(
+        **SPEC, score_threshold=threshold), metas=metas, one_hm=one_hm)
+    assert got == want
+
+
+def test_metrics_match_jax_package():
+    rng = np.random.default_rng(7)
+    a, b = rng.normal(size=(15, 3)), rng.normal(size=(15, 3))
+    np.testing.assert_array_equal(tmet.pjpe(a, b), jmet.pjpe(a, b))
+    np.testing.assert_array_equal(tmet.abs_pjpe(a, b), jmet.abs_pjpe(a, b))
