@@ -22,14 +22,35 @@ Phases, each fatal on failure (exit code != 0, no result line):
      time and operations per frame, the card's idle share, and the
      kernels with the most device time;
   8. one frame through the port on the card (bf16 + kernels) against the
-     same frame and weights through the port on the CPU in float32.
+     same frame and weights through the port on the CPU in float32;
+  9. the conv backward (``Conv3dK3``): grad-input through the K3 kernel on
+     flipped, transposed weights, and the library grad-weight, against their
+     plain versions at the training shapes (B=8, full and half resolution)
+     and a ragged shape with bias, timed beside cuDNN's bf16 grad-input; the
+     forward kernel at B=8;
+ 10. ``TorchConv3d`` in grad mode on the card: its output has a ``grad_fn``
+     and its gradients match autograd of the plain version;
+ 11. the flagship training path end to end: a synthetic ROI-only root of
+     TRAIN_FRAMES train frames, ``rtpose_tpu_torch.tools.train`` on the
+     flagship config with --device_preprocess --seed 0 --stop_epoch 2 (B=8,
+     total_epochs sizing one-cycle), its launch counts (preprocess once per
+     step, the conv 14 times per step forward and 14 backward), finite
+     losses and no skipped step, ms/step and frames/s;
+ 12. one more training epoch under torch.profiler: device busy ms/step and
+     the card's idle share;
+ 13. ``rtpose_tpu_torch.tools.test`` evaluates the trained checkpoint;
+ 14. one train step's loss and gradients on the card (bf16 + kernels)
+     against the CPU in float32, same weights and sample, B=1.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
 wrapper called eagerly, host work included.
-Prints a ``{"e2e": ...}`` line, a ``{"kernels": [...]}`` line, then the
-nvidia-smi line again, then ``{"ok": true, "device": {...}}`` as the last
-line.
+Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
+``{"kernels": [...]}`` line, then the nvidia-smi line again, then
+``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
+``launches`` is its count on its own path (eval for the preprocess and
+forward conv kernels, training for the conv backward); ``train_launches``
+gives every kernel's count on the training path.
 """
 
 from __future__ import annotations
@@ -61,7 +82,14 @@ PRE_RTOL = 1e-6
 # differences of ~1.3 % of max |reg|.  Allowed: 5 % of each.
 E2E_FRAC = 0.05
 
+# GPU (bf16 + kernels) vs CPU (float32) train step at B=1: loss within 2 %,
+# global gradient norm within 5 %, cosine of the flattened gradients >= 0.99
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COS = 0.02, 0.05, 0.99
+
 FRAMES = 300    # test frames of the synthetic root (2 sequences x 150)
+TRAIN_FRAMES = 96   # train frames of the training root (2 sequences x 48)
+TRAIN_EPOCHS = 2    # --stop_epoch of the training run
+K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
 
@@ -249,6 +277,125 @@ def phase_conv(dev):
                               bound_ms=half[3], wrapper_ms=half[4]))
 
 
+def phase_conv_bwd(dev):
+    """K3's backward against its plain versions; device times of grad-input
+    (the kernel on flipped weights), its plain version, cuDNN's bf16
+    grad-input, the library grad-weight the port calls, and the forward
+    kernel at B=8."""
+    import torch
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.ops import conv_k3 as ck
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = torch.randn((32, 32, 3, 3, 3), generator=gen, device=dev) * (2 / 864) ** 0.5
+    bias = torch.randn((32,), generator=gen, device=dev)
+    errs, gw_errs = {}, {}
+    for shape, b in [((8, 16, 64, 160), None), ((8, 8, 32, 80), None),
+                     ((2, 5, 13, 37), bias)]:
+        x = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
+        xk = x.clone().requires_grad_()
+        wk = w.clone().requires_grad_()
+        bk = None if b is None else b.clone().requires_grad_()
+        ops.reset_launch_counts()
+        ck.Conv3dK3.apply(xk, wk, bk).backward(g)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["conv3d_k3"] != 1 or counts["conv3d_k3_bwd"] != 1:
+            fail(f"Conv3dK3 {shape}: launch counts {counts}")
+        want = ck.conv3d_k3_reference(g, ck.flip_transpose(w))
+        errs[str(shape)] = check_close(f"conv grad-input {shape}", xk.grad, want, CONV_RTOL,
+                                       CONV_ATOL_FRAC * want.float().abs().max().item())
+        gw_plain = torch.ops.aten.convolution_backward(
+            g.float().permute(0, 4, 1, 2, 3), x.float().permute(0, 4, 1, 2, 3),
+            w.to(torch.bfloat16).float(), None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+            [0, 0, 0], 1, [False, True, False])[1]
+        if wk.grad.dtype != torch.float32:
+            fail(f"conv grad-weight dtype {wk.grad.dtype}")
+        gw_errs[str(shape)] = check_close(f"conv grad-weight {shape}", wk.grad, gw_plain,
+                                          CONV_RTOL, CONV_ATOL_FRAC * gw_plain.abs().max().item())
+        if b is not None:
+            check_close("conv grad-bias", bk.grad, g.float().sum((0, 1, 2, 3)), 1e-5, 1e-3)
+    print(f"[conv bwd] grad-input max abs err by shape: {errs}; grad-weight: {gw_errs}")
+    out = {}
+    for shape in ((8, 16, 64, 160), (8, 8, 32, 80)):
+        x = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
+        wrf = ck.prepare_flipped(w)
+        wr, _ = ck.prepare(w)
+        wb = w.to(torch.bfloat16)
+        xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        wft = ck.flip_transpose(w)
+
+        def lib_grad(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                gc, xc, wb, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+        ms = device_ms(lambda: ck.launch(g, wrf))
+        wrap_ms = wrapper_ms(lambda: ck.grad_input(g, w))
+        plain_ms = device_ms(lambda: ck.conv3d_k3_reference(g, wft))
+        lib_ms = device_ms(lib_grad([True, False, False]))
+        gw_ms = device_ms(lambda: ck.grad_weight(x, g, w))
+        gw_lib_ms = device_ms(lib_grad([False, True, False]))
+        fwd_ms = device_ms(lambda: ck.launch(x, wr))
+        vox = x.numel() // 32
+        flops = 2 * 27 * 32 * 32 * vox
+        bound = max(flops / PEAK_BF16_FLOPS, (2 * x.numel() * 2 + w.numel() * 2)
+                    / PEAK_BYTES) * 1e3
+        out[shape] = dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, grad_weight_ms=gw_ms,
+                          grad_weight_library_call_ms=gw_lib_ms, fwd_ms=fwd_ms,
+                          gflop=flops / 1e9)
+        print(f"[conv bwd] {shape}: grad-input {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+              f"wrapper {wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, cuDNN bf16 grad-input "
+              f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP); forward "
+              f"kernel {fwd_ms:.4f} ms")
+        print(f"[conv bwd] {shape}: grad-weight (library, the port's call) {gw_ms:.4f} ms; "
+              f"bare convolution_backward {gw_lib_ms:.4f} ms")
+    full, half = out[(8, 16, 64, 160)], out[(8, 8, 32, 80)]
+    bwd = dict(name="conv3d_k3_bwd", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3.cu",
+               replaces="rtpose_tpu/ops/pallas_conv.py:215",
+               max_abs_err=max(errs.values()), ms=full["ms"], plain_ms=full["plain_ms"],
+               bound_ms=full["bound_ms"], bound_by="operations", library_ms=full["library_ms"],
+               wrapper_ms=full["wrapper_ms"], shape="(8, 16, 64, 160, 32) bf16 grad-input",
+               grad_weight_ms=full["grad_weight_ms"], grad_weight_max_abs_err=max(gw_errs.values()),
+               half_res={k: half[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "wrapper_ms", "grad_weight_ms")})
+    return bwd, dict(full_ms=full["fwd_ms"], half_ms=half["fwd_ms"],
+                     bound_ms=full["bound_ms"], half_bound_ms=half["bound_ms"])
+
+
+def phase_autograd(dev):
+    """``TorchConv3d`` bf16 in grad mode on the card: the output carries a
+    ``grad_fn`` and the input and weight gradients match autograd of the
+    plain version."""
+    import torch
+    from rtpose_tpu_torch.models.layers import TorchConv3d
+    from rtpose_tpu_torch.ops import conv_k3 as ck
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = TorchConv3d(32, 32, bias=False, dtype="bfloat16").to(dev)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=gen, device=dev) * 0.06)
+    x = torch.randn((2, 16, 64, 160, 32), generator=gen, device=dev).requires_grad_()
+    g = torch.randn((2, 16, 64, 160, 32), generator=gen, device=dev).to(torch.bfloat16)
+    out = m(x)
+    if out.grad_fn is None:
+        fail("TorchConv3d in grad mode on the card returned a tensor without grad_fn")
+    out.backward(g)
+    xr = x.detach().clone().requires_grad_()
+    wr = m.weight.detach().clone().requires_grad_()
+    ck.conv3d_k3_reference(xr, wr).backward(g)
+    if x.grad is None or m.weight.grad is None:
+        fail("TorchConv3d in grad mode: no gradient reached the input or the weight")
+    gx = check_close("TorchConv3d grad-input", x.grad, xr.grad, CONV_RTOL,
+                     CONV_ATOL_FRAC * xr.grad.abs().max().item())
+    gw = check_close("TorchConv3d grad-weight", m.weight.grad, wr.grad, CONV_RTOL,
+                     CONV_ATOL_FRAC * wr.grad.abs().max().item())
+    print(f"[autograd] TorchConv3d grad_fn {type(out.grad_fn).__name__}; grad-input max err "
+          f"{gx:.3e}, grad-weight max err {gw:.3e} (max |gw| {wr.grad.abs().max().item():.3f})")
+
+
 def write_inputs(tmp):
     """A synthetic root of FRAMES test frames at the flagship geometry, with
     each cube stored pre-cropped to the ROI (the shape the loader ships
@@ -415,6 +562,178 @@ def phase_cpu_compare(cfg, ckpt, detections, dev):
           f"tools.test vs direct {run_err:.2e} m")
 
 
+def write_train_inputs(tmp):
+    """A synthetic root of TRAIN_FRAMES train frames (and 8 test frames) at
+    the flagship geometry, cubes stored pre-cropped to the ROI, and a config
+    that runs the flagship file as shipped, reads that root and saves a
+    checkpoint after every epoch."""
+    from rtpose_tpu_torch.data import generate_synthetic_dataset
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "train_data")
+    generate_synthetic_dataset(root, num_seqs=2, frames_per_seq=TRAIN_FRAMES // 2,
+                               test_frames_per_seq=4, seed=1, roi_only=True)
+    cfg_path = os.path.join(tmp, "hr3d_one_hm_doppler_train_roi_only.py")
+    with open(cfg_path, "w") as f:
+        f.write(f"exec(compile(open({FLAGSHIP!r}).read(), {FLAGSHIP!r}, 'exec'))\n"
+                f"DATASET['DIR']['ROOT_DIR'] = {root!r}\n"
+                "DATASET['DIR']['CUBES_ARE_ROI'] = True\n"
+                # a checkpoint after each epoch: the run stops after two
+                "checkpoint_config = dict(interval=1)\n")
+    print(f"[train] synthetic root of {TRAIN_FRAMES} train frames: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg_path
+
+
+def train_argv(cfg_path, work_dir, epochs):
+    return [cfg_path, "--work_dir", work_dir, "--device_preprocess", "--seed", "0",
+            "--stop_epoch", str(epochs)]
+
+
+def phase_train(tmp, cfg_path):
+    """The port's train CLI on the flagship config: launch counts, finite
+    losses, no skipped step, ms/step."""
+    import statistics
+
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.tools import train as port_train
+
+    work = os.path.join(tmp, "train_work")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = port_train.main(train_argv(cfg_path, work, TRAIN_EPOCHS))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = len(trainer.iter_seconds)
+    hist = trainer.log_buffer.val_history
+    losses, skipped = hist["loss"], hist["skipped"]
+    print(f"[train] tools.train: {steps} steps in {wall:.1f} s wall, launch counts {counts}")
+    if steps != TRAIN_EPOCHS * TRAIN_FRAMES // 8:
+        fail(f"{steps} train steps, expected {TRAIN_EPOCHS * TRAIN_FRAMES // 8}")
+    if len(losses) != steps or not all(v == v and abs(v) < float("inf") for v in losses):
+        fail(f"train losses not all finite: {losses}")
+    if any(v != 0.0 for v in skipped):
+        fail(f"{int(sum(skipped))} train steps skipped")
+    want = {"preprocess": steps, "conv3d_k3": K3_PER_STEP * steps,
+            "conv3d_k3_bwd": K3_PER_STEP * steps}
+    if counts != want:
+        fail(f"training launch counts {counts}, expected {want}")
+    ckpt = os.path.join(work, "checkpoints", f"epoch_{TRAIN_EPOCHS}.pth")
+    if not os.path.isfile(ckpt):
+        fail(f"no checkpoint {ckpt}")
+    ms = [t * 1e3 for t in trainer.iter_seconds[2:]]      # after two warm-up steps
+    med = statistics.median(ms)
+    print(f"[train] losses {[round(v, 4) for v in losses]}")
+    print(f"[train] ms/step after warm-up (host clock per iteration, B=8): median {med}, "
+          f"spread {max(ms) - min(ms)}, min {min(ms)}, max {max(ms)}; "
+          f"{8e3 / med} frames/s")
+    return dict(steps=steps, batch=8, wall_s=wall, ms_per_step=ms, ms_per_step_median=med,
+                ms_per_step_spread=max(ms) - min(ms), frames_per_s=8e3 / med,
+                first_step_ms=trainer.iter_seconds[0] * 1e3, losses=losses,
+                grad_norm_last=hist["grad_norm"][-1], launches=counts, checkpoint=ckpt)
+
+
+def phase_train_trace(tmp, cfg_path, median_ms):
+    """One more training epoch under torch.profiler: device busy ms/step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtpose_tpu_torch.tools import train as port_train
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer = port_train.main(train_argv(cfg_path, os.path.join(tmp, "trace_work"), 1))
+        torch.cuda.synchronize()
+    traced_wall = time.perf_counter() - t0
+    steps = len(trainer.iter_seconds)
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        fail("the training trace holds no device operation")
+    busy = sum(e.self_device_time_total for e in ops) / 1e3 / steps
+    n_ops = sum(e.count for e in ops) / steps
+    print(f"[train trace] {steps} steps, {traced_wall:.1f} s traced; device busy {busy} "
+          f"ms/step, {n_ops} device operations/step, idle share {1 - busy / median_ms}")
+    print(f"[train trace] {'device operation':<80} {'ms/step':>9} {'calls/step':>10}")
+    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
+        print(f"[train trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3 / steps:9.4f} "
+              f"{e.count / steps:10.2f}")
+    return dict(traced_steps=steps, device_busy_ms_per_step=busy,
+                device_ops_per_step=n_ops, device_idle_share=1 - busy / median_ms)
+
+
+def phase_train_eval(tmp, cfg_path, ckpt):
+    """``tools.test`` evaluates the trained checkpoint as written."""
+    from rtpose_tpu_torch.tools import test as port_test
+
+    out = port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir",
+                          os.path.join(tmp, "train_eval"), "--testset", "--device_preprocess"])
+    mpjpe = out["results"]["MPJPE"]
+    if not (mpjpe == mpjpe and 0 < mpjpe < float("inf")) or len(out["detections"]) != 8:
+        fail(f"evaluating the trained checkpoint: MPJPE {mpjpe}, "
+             f"{len(out['detections'])} frames")
+    print(f"[train] tools.test on the trained checkpoint: MPJPE {mpjpe} mm over 8 frames")
+    return mpjpe
+
+
+def phase_train_compare(cfg_path, dev):
+    """One train step's loss and gradients, B=1: card (bf16 + kernels)
+    against CPU (float32), same seeded weights and sample."""
+    import copy
+
+    import torch
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.engine import make_loss_fn
+    from rtpose_tpu_torch.models import build_detector, init_weights
+
+    cfg = Config.fromfile(cfg_path)
+    asm = assemble(cfg)
+    model_cfg = copy.deepcopy(dict(cfg.model))
+    model_cfg["backbone"]["dtype"] = "float32"
+    model_cfg["pose_head"]["dtype"] = "float32"
+    gpu = init_weights(asm.model, torch.Generator().manual_seed(0))
+    cpu = build_detector(model_cfg)
+    cpu.load_state_dict(gpu.state_dict())
+    gpu = gpu.to(dev)
+    ds = build_dataset_from_cfg(cfg.data, "train", device_preprocess=True)
+    item = ds[0]
+    norm = (ds.norm_start, ds.norm_scale)
+
+    def loss_and_grads(model, device):
+        batch = {k: torch.from_numpy(item[k])[None].to(device)
+                 for k in ("rdr_raw", "poses")}
+        batch["num_poses"] = torch.tensor([int(item["num_poses"])], device=device)
+        loss_fn = make_loss_fn(model, model.pose_head, asm.target_spec, sparse_reg=True,
+                               preprocess=norm)
+        loss, losses = loss_fn(batch, torch.zeros((), dtype=torch.int64, device=device))
+        loss.backward()
+        g = torch.cat([p.grad.reshape(-1).float().cpu() for p in model.parameters()])
+        return (float(loss.detach()), float(losses["hm_loss"][0].detach()),
+                float(losses["loc_loss"][0].detach()), g)
+
+    t0 = time.perf_counter()
+    lg, hg, cg, gg = loss_and_grads(gpu, dev)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lc, hc, cc, gc = loss_and_grads(cpu, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    ng, nc = gg.norm().item(), gc.norm().item()
+    cos = float(torch.dot(gg.double(), gc.double()) / (gg.double().norm() * gc.double().norm()))
+    rel_loss, rel_norm = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
+    print(f"[train compare] B=1 step: loss card {lg} cpu {lc} (rel {rel_loss:.2e}; hm {hg} / "
+          f"{hc}, loc {cg} / {cc}); grad norm card {ng} cpu {nc} (rel {rel_norm:.2e}); "
+          f"cosine {cos}; {t_gpu:.1f} s card, {t_cpu:.1f} s CPU")
+    if not torch.isfinite(gg).all():
+        fail("card gradients not finite")
+    if rel_loss > TRAIN_LOSS_RTOL:
+        fail(f"train loss card vs cpu off by {rel_loss:.3e} relative")
+    if rel_norm > TRAIN_GNORM_RTOL:
+        fail(f"grad norm card vs cpu off by {rel_norm:.3e} relative")
+    if cos < TRAIN_MIN_COS:
+        fail(f"gradient cosine card vs cpu {cos}")
+    return dict(loss_rel_err=rel_loss, grad_norm_rel_err=rel_norm, grad_cosine=cos)
+
+
 def main() -> int:
     try:
         import torch
@@ -439,18 +758,31 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = [phase_preprocess(dev), phase_conv(dev)]
+    bwd, fwd_b8 = phase_conv_bwd(dev)
+    kernels[1]["b8"] = fwd_b8
+    kernels.append(bwd)
+    phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
         out, counts = phase_e2e(tmp, cfg_path, ckpt)
         e2e = phase_speed_and_trace(tmp, cfg_path, ckpt, out["sec_per_frame"] * 1e3)
         phase_cpu_compare(cfg, ckpt, out["detections"], dev)
+        train_cfg = write_train_inputs(tmp)
+        train = phase_train(tmp, train_cfg)
+        train.update(phase_train_trace(tmp, train_cfg, train["ms_per_step_median"]))
+        train["trained_mpjpe_mm"] = phase_train_eval(tmp, train_cfg, train.pop("checkpoint"))
+        train.update(phase_train_compare(train_cfg, dev))
+    tc = train["launches"]
     kernels[0]["launches"] = counts["preprocess"]
     kernels[1]["launches"] = counts["conv3d_k3"]
-    for k in kernels:
+    kernels[2]["launches"] = tc["conv3d_k3_bwd"]
+    for k, name in zip(kernels, ("preprocess", "conv3d_k3", "conv3d_k3_bwd")):
         k["kernel_ms"] = k["ms"]
+        k["train_launches"] = tc[name]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

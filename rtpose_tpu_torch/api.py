@@ -16,6 +16,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .core.decode import DecodeSpec
+from .core.targets import PoseTargetSpec
 from .data.cruw_pose import CubeGeometry
 from .models import build_detector
 from .registry import DATASETS, build_from_cfg
@@ -42,6 +43,12 @@ class Assembly:
     decode_spec: DecodeSpec
     one_hm: bool
     model_cfg: Any = None          # the cfg.model dict the detector was built from
+    target_spec: PoseTargetSpec = None
+
+    @property
+    def head(self):
+        """The CenterHead (its ``loss`` is the train step's)."""
+        return self.model.pose_head
 
     @property
     def sparse_head(self) -> bool:
@@ -82,8 +89,18 @@ def assemble(cfg) -> Assembly:
     )
     if int(assigner_cfg.get("max_poses", 1)) != 1:
         raise NotImplementedError("multi-person decode is not ported")
+    target_spec = PoseTargetSpec(
+        grid_zyx=decode_spec.grid_zyx,
+        pc_range_min_xyz=decode_spec.pc_range_min_xyz,
+        voxel_size_xyz=tuple(float(v) for v in dataset_cfg["RDR_CUBE"]["GRID_SIZE"]),
+        out_size_factor_zyx=osf,
+        max_poses=int(assigner_cfg.get("max_poses", 1)),
+        min_radius=int(assigner_cfg.get("min_radius", 2)),
+        mode=mode,
+        num_classes=len(model_cfg["pose_head"]["tasks"][0]["class_names"]))
     return Assembly(model=build_detector(model_cfg), decode_spec=decode_spec,
-                    one_hm=(mode == "one_hm"), model_cfg=model_cfg)
+                    one_hm=(mode == "one_hm"), model_cfg=model_cfg,
+                    target_spec=target_spec)
 
 
 def serving_variant(asm: Assembly, final_dtype) -> Assembly:
@@ -97,10 +114,11 @@ def serving_variant(asm: Assembly, final_dtype) -> Assembly:
 
 
 def build_dataset_from_cfg(data_cfg: Dict[str, Any], split: str,
-                           device_preprocess: bool = False):
+                           device_preprocess: bool = False, max_poses: int = 1):
     """Build a dataset from cfg.data.{train,val,test} (reference schema)."""
     dcfg = dict(data_cfg[split])
     dcfg["split"] = "train" if split == "train" else "test"
+    dcfg["max_poses"] = max_poses
     if device_preprocess:
         dcfg["device_preprocess"] = True
     return build_from_cfg(dcfg, DATASETS)

@@ -1,6 +1,10 @@
 from .decode import (DecodeSpec, decode_pose_preds, decode_pose_sparse,
                      flat_argmax, post_process_pose)
+from .gaussian import dense_pose_heatmap, gaussian_radius
 from .metrics import abs_pjpe, pjpe
+from .targets import PoseTargetSpec, assign_pose_targets
 
 __all__ = ["DecodeSpec", "decode_pose_preds", "decode_pose_sparse",
-           "flat_argmax", "post_process_pose", "abs_pjpe", "pjpe"]
+           "flat_argmax", "post_process_pose", "abs_pjpe", "pjpe",
+           "dense_pose_heatmap", "gaussian_radius", "PoseTargetSpec",
+           "assign_pose_targets"]

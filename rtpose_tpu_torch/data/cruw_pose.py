@@ -11,7 +11,10 @@ Counterpart of ``rtpose_tpu/data/cruw_pose.py`` (reference
   (``get_cube``, numpy), or shipped raw and ROI-cropped in its on-disk
   dtype for the card's preprocess kernel (``get_cube_raw``);
 * ``evaluation()``: MPJPE / ABS_MPJPE in millimeters, averaged per joint,
-  per sequence, then overall.
+  per sequence, then overall;
+* the base class's uniform aspect-group ``flag`` and ``max_poses``-padded
+  ``poses`` with ``num_poses``, so a training loader batches as the JAX one
+  does.
 
 Not ported yet: the native C++ cube loader, the complex-phase cubes, the
 KITTI box-AP report and the LiDAR dataset.
@@ -89,7 +92,7 @@ class CRUWPoseDataset:
     NUM_JOINTS = 15
 
     def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
-                 pipeline=None, split: str = "train",
+                 pipeline=None, split: str = "train", max_poses: int = 1,
                  device_preprocess: bool = False):
         ds = cfg["DATASET"]
         self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
@@ -104,6 +107,7 @@ class CRUWPoseDataset:
         self.cfg = cfg
         self.split = split
         self.class_names = class_names
+        self.max_poses = int(max_poses)
         self.root_dir = ds["DIR"]["ROOT_DIR"]
         self.with_doppler = "d" in self.rdr_type
         self.rdr_dirname = ds["DIR"].get(
@@ -130,6 +134,10 @@ class CRUWPoseDataset:
             os.path.join(self.root_dir, ds["DIR"]["META_FILE"]))
         self.label_file = os.path.join(self.root_dir, label_file)
         self.samples = self._load_samples(self.label_file)
+        # uniform aspect-group flags (the base class's, reference
+        # custom.py:160-168): a shuffled training loader batches through
+        # group_shard_indices, as the JAX loader does
+        self.flag = np.ones(len(self.samples), dtype=np.uint8)
 
     @staticmethod
     def _read_meta(path: str) -> Dict[str, str]:
@@ -190,10 +198,14 @@ class CRUWPoseDataset:
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         s = self.samples[idx]
+        poses = np.zeros((self.max_poses, self.NUM_JOINTS, 3), np.float32)
+        n = min(len(s["poses"]), self.max_poses)
+        for i in range(n):
+            poses[i] = np.asarray(s["poses"][i], np.float32)
         item = {
             "meta": dict(seq=s["seq"], frame=s["frame"], rdr_frame=s["rdr_frame"]),
-            "poses": np.asarray(s["poses"], np.float32),     # (1, 15, 3)
-            "num_poses": np.int32(1),
+            "poses": poses,                                  # (max_poses, 15, 3)
+            "num_poses": np.int32(n),
             "mode": self.split,
         }
         if self.device_preprocess:

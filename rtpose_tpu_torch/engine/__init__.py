@@ -1,7 +1,18 @@
+from .checkpoint import (load_training_checkpoint, resolve_checkpoint,
+                         save_training_checkpoint)
 from .convert import load_checkpoint, save_checkpoint, state_dict_from_jax
 from .evaluator import device_prefetch, run_eval, save_predictions
-from .steps import make_eval_step, model_input_of, preprocess_raw
+from .hooks import PRIORITIES, CheckpointHook, Hook, LoggerHook, SamplerSeedHook
+from .log_buffer import LogBuffer
+from .steps import (TrainState, create_train_state, make_eval_step, make_loss_fn,
+                    make_train_step, model_input_of, preprocess_raw,
+                    targets_from_batch)
+from .trainer import Preempted, Trainer, get_root_logger
 
-__all__ = ["load_checkpoint", "save_checkpoint", "state_dict_from_jax",
-           "device_prefetch", "run_eval", "save_predictions", "make_eval_step",
-           "model_input_of", "preprocess_raw"]
+__all__ = ["load_training_checkpoint", "resolve_checkpoint", "save_training_checkpoint",
+           "load_checkpoint", "save_checkpoint", "state_dict_from_jax",
+           "device_prefetch", "run_eval", "save_predictions", "PRIORITIES",
+           "CheckpointHook", "Hook", "LoggerHook", "SamplerSeedHook", "LogBuffer",
+           "TrainState", "create_train_state", "make_eval_step", "make_loss_fn",
+           "make_train_step", "model_input_of", "preprocess_raw",
+           "targets_from_batch", "Preempted", "Trainer", "get_root_logger"]

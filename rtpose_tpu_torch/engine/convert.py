@@ -8,8 +8,8 @@ build_name_map`` maps the other way, so a port checkpoint also loads back
 into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
 kx); GroupNorm ``scale`` -> ``weight``.
 
-Checkpoints are ``.pth`` files ``{"meta": {...}, "state_dict": {...}}``,
-the reference format.
+Checkpoints are ``.pth`` files ``{"meta": {...}, "state_dict": {...}}``
+(training adds ``"optimizer"``), the reference format.
 """
 
 from __future__ import annotations
@@ -92,12 +92,26 @@ def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tenso
     return out
 
 
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
-                    meta: Dict[str, Any] | None = None) -> str:
-    """Write a reference-format ``.pth``: ``{"meta", "state_dict"}``."""
-    torch.save({"meta": dict(meta or {}),
-                "state_dict": OrderedDict((k, v.detach().cpu())
-                                          for k, v in state_dict.items())}, path)
+                    meta: Dict[str, Any] | None = None,
+                    optimizer: Dict[str, Any] | None = None) -> str:
+    """Write a reference-format ``.pth``: ``{"meta", "state_dict"}``, and
+    ``"optimizer"`` (an optimizer state dict) when given."""
+    ckpt = {"meta": dict(meta or {}),
+            "state_dict": OrderedDict((k, v.detach().cpu()) for k, v in state_dict.items())}
+    if optimizer is not None:
+        ckpt["optimizer"] = _to_cpu(optimizer)
+    torch.save(ckpt, path)
     return path
 
 

@@ -11,8 +11,11 @@ Counterpart of ``rtpose_tpu/models/center_head.py`` (reference
   the heatmap head's final bias initializes to ``init_bias`` = -2.19;
 * ``predict`` = dense decode (``core.decode.decode_pose_preds``).
 
-The losses wait for the training slice of the port; ``weight`` and
-``code_weights`` are kept for it.  State-dict keys follow the reference:
+* ``loss`` = per-task focal (``focal_form``: ``"logits"``, the shipped
+  form, or the reference's ``"clamped"``) + ``weight`` x code-weighted L1
+  (``rtpose_tpu/models/center_head.py:154-192``).
+
+State-dict keys follow the reference:
 ``tasks.{t}.{head}.{0,2,..}.{weight,bias}``.
 """
 
@@ -26,6 +29,7 @@ import torch.nn as nn
 from ..core.decode import decode_pose_preds
 from ..registry import HEADS
 from .layers import GroupNorm8, TorchConv3d, canonical_dtype
+from .losses import clamped_sigmoid, fast_focal_loss, fast_focal_loss_logits, reg_loss
 
 
 class SepHead(nn.Module):
@@ -88,10 +92,13 @@ class CenterHead(nn.Module):
                  weight: float = 0.1, code_weights: Sequence[float] = (),
                  init_bias: float = -2.19, num_hm_conv: int = 2,
                  dataset: str = "cruw_pose", dcn_head: bool = False,
-                 dtype=None, final_dtype=torch.float32):
+                 dtype=None, final_dtype=torch.float32, focal_form: str = "logits"):
         super().__init__()
         if dcn_head:
             raise NotImplementedError("the deformable-conv head is not ported")
+        if focal_form not in ("logits", "clamped"):
+            raise ValueError(f"focal_form must be 'logits' or 'clamped', got {focal_form!r}")
+        self.focal_form = focal_form
         self.tasks_cfg = [dict(t) for t in tasks]
         self.weight = weight
         self.code_weights = tuple(code_weights)
@@ -129,6 +136,32 @@ class CenterHead(nn.Module):
         if self.shared_conv is not None:
             x = self.shared_conv(x)
         return [t(x, branch=branch, inner_mask=inner_mask) for t in self.tasks]
+
+    def loss(self, example: Dict[str, list], preds_dicts: List[Dict[str, torch.Tensor]]
+             ) -> Dict[str, list]:
+        """Per-task losses.  ``example`` carries per-task lists: hm
+        (B, Z, Y, X, C), anno_pose (B, M, D), ind / mask / cat (B, M).
+        Returns per-task lists ``loss``, ``hm_loss``, ``loc_loss``,
+        ``loc_loss_elem`` (D,) and ``num_positive``."""
+        code_w = torch.tensor(self.code_weights, dtype=torch.float32)
+        merged: Dict[str, list] = {k: [] for k in ("loss", "hm_loss", "loc_loss",
+                                                   "loc_loss_elem", "num_positive")}
+        for t, preds in enumerate(preds_dicts):
+            hm, ind = example["hm"][t], example["ind"][t]
+            mask, cat = example["mask"][t], example["cat"][t]
+            if self.focal_form == "clamped":
+                hm_loss = fast_focal_loss(clamped_sigmoid(preds["hm"].float()), hm,
+                                          ind, mask, cat)
+            else:
+                hm_loss = fast_focal_loss_logits(preds["hm"], hm, ind, mask, cat)
+            rl = reg_loss(preds["reg"].float(), mask, ind, example["anno_pose"][t])
+            loc_loss = torch.sum(rl * code_w.to(rl.device))
+            merged["loss"].append(hm_loss + self.weight * loc_loss)
+            merged["hm_loss"].append(hm_loss)
+            merged["loc_loss"].append(loc_loss)
+            merged["loc_loss_elem"].append(rl)
+            merged["num_positive"].append(mask.float().sum())
+        return merged
 
     def predict(self, preds_dicts: List[Dict[str, torch.Tensor]], decode_spec):
         """Decode each task's dense output to (kpts, scores, labels)."""

@@ -55,6 +55,23 @@ class RadarPoseNet(nn.Module):
     def forward(self, rdr_tensor: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         return self.pose_head(self.extract_feat(rdr_tensor))
 
+    def forward_sparse_train(self, rdr_tensor: torch.Tensor, ind: torch.Tensor):
+        """Training forward with the reg tower evaluated only at the target
+        indices ``ind`` (B, M) (detectors.py:66-88): the reg loss gathers
+        there, so loss and gradients equal the dense step's.
+
+        Returns (hm (B, Z, Y, X, C) logits, reg_at_ind (B, M, D)).
+        """
+        feat = self.extract_feat(rdr_tensor)
+        hm = self.pose_head(feat, branch="hm")[0]["hm"]
+        B, Z, Y, X, _ = hm.shape
+        M = ind.shape[1]
+        flat = ind.reshape(B * M).long()
+        feat_rep = feat.repeat_interleave(M, dim=0) if M > 1 else feat
+        reg = self._reg_patches(feat_rep, flat // (Y * X), (flat % (Y * X)) // X,
+                                flat % X, (Z, Y, X))
+        return hm, reg.reshape(B, M, -1)
+
     def _reg_patches(self, feat: torch.Tensor, z, y, x, zyx) -> torch.Tensor:
         """Reg-tower values at voxel coords (B,) via 5^3 receptive-field
         patches: the head's two 3x3x3 convs see exactly the 5^3 cube around

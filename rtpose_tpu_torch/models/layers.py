@@ -13,9 +13,12 @@ so ``state_dict`` keys match ``rtpose_tpu/engine/torch_import.py``.
 
 * ``TorchConv3d`` — torch padding (k // 2) and stride, optional compute
   dtype.  CUDA bf16 convs of kernel 3, stride 1, 32 -> 32 channels run the
-  hand kernel; every other shape runs ``F.conv3d``.  Under ``no_grad`` /
-  ``inference_mode`` the cast (and, for the kernel, re-laid) weights are
-  kept on the module between calls.
+  hand kernel; every other shape runs ``F.conv3d``.  With grad mode on,
+  bf16 convs of the kernel's shape (CPU tensors too, on its plain version)
+  go through ``ops.conv_k3.Conv3dK3``, whose backward launches the kernel
+  again for grad-input.  Under ``no_grad`` / ``inference_mode`` the cast
+  (and, for the kernel, re-laid) weights are kept on the module between
+  calls.
 * ``GroupNorm8`` — float32 statistics, eps 1e-5, one group when C < 8,
   output cast back to the input dtype.
 * ``SingleConv`` (order strings g/c/r/l/e), ``ResNetBlock``, ``GNConv``.
@@ -82,8 +85,12 @@ class TorchConv3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
-        if x.device.type == "cuda" and conv_k3.supports(x, self.weight, self.stride):
-            return conv_k3.launch(x, *self._weights(x, conv_k3.prepare))
+        if conv_k3.supports(x, self.weight, self.stride):
+            if torch.is_grad_enabled():
+                # the kernel with its backward: the parameters get gradients
+                return conv_k3.Conv3dK3.apply(x, self.weight, self.bias)
+            if x.device.type == "cuda":
+                return conv_k3.launch(x, *self._weights(x, conv_k3.prepare))
         w, b = self._weights(x, lambda w, b: (
             w.to(x.dtype), None if b is None else b.to(x.dtype)))
         return conv3d(x, w, b, self.stride)

@@ -1,0 +1,94 @@
+"""CenterNet pose losses.
+
+Counterpart of ``rtpose_tpu/models/losses.py:24-129`` (reference
+``det3d/models/losses/centernet_loss.py``), channels-last: predictions are
+(B, Z, Y, X, C) and gathers use the flat voxel index
+``ind = z * (Y * X) + y * X + x``, the row order of ``reshape(B, -1, C)``.
+
+* ``fast_focal_loss_logits`` — the shipped form: the CornerNet focal loss
+  computed from logits with log-sigmoid (no gradient dead zone where the
+  reference's clamp would cut it).
+* ``fast_focal_loss`` — the reference's form on clamped probabilities.
+* ``reg_loss`` — masked L1 at the gathered indices, normalized by the
+  positive count, per output dimension.
+All return float32; with no positive, the focal losses return the raw
+negative sum (the reference's rule).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """Rows of a (B, N, C) tensor at (B, M) flat indices -> (B, M, C)."""
+    return torch.gather(feat, 1, ind.long()[:, :, None].expand(-1, -1, feat.shape[-1]))
+
+
+def clamped_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Sigmoid clamped to [eps, 1 - eps] (center_head.py:240-242)."""
+    return torch.clamp(torch.sigmoid(x), eps, 1.0 - eps)
+
+
+def _at_class(rows: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+    """(B, M, C) gathered rows -> (B, M) values at each object's class."""
+    return torch.gather(rows, 2, cat.long()[:, :, None])[..., 0]
+
+
+def _normalize(pos_loss, neg_loss, maskf):
+    num_pos = maskf.sum()
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
+
+
+def fast_focal_loss_logits(logits: torch.Tensor, target: torch.Tensor,
+                           ind: torch.Tensor, mask: torch.Tensor,
+                           cat: torch.Tensor) -> torch.Tensor:
+    """CornerNet focal loss from logits (B, Z, Y, X, C); ``target`` the
+    gaussian heatmap of the same shape; ``ind``/``mask``/``cat`` (B, M)."""
+    B, C = logits.shape[0], logits.shape[-1]
+    x = logits.float().reshape(B, -1, C)
+    target_flat = target.reshape(B, -1, C)
+    maskf = mask.float()
+    p = torch.sigmoid(x)
+    log_p = F.logsigmoid(x)
+    log_not_p = F.logsigmoid(-x)
+    neg_loss = torch.sum(log_not_p * torch.square(p) * torch.pow(1.0 - target_flat, 4))
+    pos_log_p = _at_class(gather_feat(log_p, ind), cat)
+    pos_p = _at_class(gather_feat(p, ind), cat)
+    pos_loss = torch.sum(pos_log_p * torch.square(1.0 - pos_p) * maskf)
+    return _normalize(pos_loss, neg_loss, maskf)
+
+
+def fast_focal_loss(out: torch.Tensor, target: torch.Tensor, ind: torch.Tensor,
+                    mask: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+    """CornerNet focal loss on heatmap probabilities ``out`` (already
+    sigmoid-clamped, not logits), (B, Z, Y, X, C)."""
+    B, C = out.shape[0], out.shape[-1]
+    out_flat = out.reshape(B, -1, C)
+    target_flat = target.reshape(B, -1, C)
+    maskf = mask.float()
+    neg_loss = torch.sum(torch.log(1.0 - out_flat) * torch.square(out_flat)
+                         * torch.pow(1.0 - target_flat, 4))
+    pos_pred = _at_class(gather_feat(out_flat, ind), cat)
+    pos_loss = torch.sum(torch.log(pos_pred) * torch.square(1.0 - pos_pred) * maskf)
+    return _normalize(pos_loss, neg_loss, maskf)
+
+
+def reg_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
+             target: torch.Tensor) -> torch.Tensor:
+    """Masked L1 of a dense (B, Z, Y, X, D) regression at ``ind`` (B, M)
+    against ``target`` (B, M, D); returns the (D,) per-dimension loss."""
+    B, D = output.shape[0], output.shape[-1]
+    pred = gather_feat(output.reshape(B, -1, D), ind)
+    return masked_l1(pred, mask, target)
+
+
+def masked_l1(pred: torch.Tensor, mask: torch.Tensor,
+              target: torch.Tensor) -> torch.Tensor:
+    """(B, M, D) predictions already at the objects -> the (D,) L1 loss,
+    summed over batch and objects, normalized by the positive count."""
+    maskf = mask.float()[:, :, None]
+    l1 = torch.abs(pred * maskf - target * maskf)
+    return torch.sum(l1 / (maskf.sum() + 1e-4), dim=(0, 1))

@@ -6,7 +6,9 @@ Same CLI as ``tools/test.py`` plus ``--device``::
         [--work_dir DIR] [--testset] [--speed_test] [--device_preprocess] \
         [--final_dtype {bfloat16,float32}] [--device {cuda,cpu}]
 
-``--checkpoint`` is a reference-format ``.pth`` (``{"meta", "state_dict"}``).
+``--checkpoint`` is a reference-format ``.pth`` (``{"meta", "state_dict"}``,
+as ``rtpose_tpu_torch.tools.train`` writes them), or a directory whose
+``latest`` file names one.
 Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
 ``<ckpt>_seq_results_{split}.json`` and prints ``Evaluation MPJPE: ...``;
 ``--speed_test`` runs batch 1 and prints ``Total time per frame``.
@@ -26,7 +28,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Test a detector (PyTorch port)")
     p.add_argument("config", help="config file path")
     p.add_argument("--work_dir", help="output dir")
-    p.add_argument("--checkpoint", required=True, help="checkpoint .pth file")
+    p.add_argument("--checkpoint", required=True,
+                   help="checkpoint .pth file, or a work_dir / checkpoints dir with 'latest'")
     p.add_argument("--speed_test", action="store_true")
     p.add_argument("--testset", action="store_true")
     p.add_argument("--device_preprocess", action="store_true",
@@ -47,15 +50,16 @@ def main(argv=None) -> dict:
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import BatchLoader
     from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step,
-                                         run_eval, save_predictions)
+                                         resolve_checkpoint, run_eval, save_predictions)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("rtpose_tpu_torch")
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
-    work_dir = args.work_dir or os.path.dirname(os.path.abspath(args.checkpoint))
+    ckpt_path = resolve_checkpoint(args.checkpoint)
+    work_dir = args.work_dir or os.path.dirname(ckpt_path)
     asm = assemble(cfg)
-    ckpt = load_checkpoint(args.checkpoint)
+    ckpt = load_checkpoint(ckpt_path)
     asm.model.load_state_dict(ckpt["state_dict"])
     if args.final_dtype:
         asm = serving_variant(asm, args.final_dtype)
@@ -82,7 +86,7 @@ def main(argv=None) -> dict:
         print(f"\n Total time per frame: {sec_per_frame}")
 
     os.makedirs(work_dir, exist_ok=True)
-    ckpt_name = os.path.basename(os.path.normpath(args.checkpoint)).split(".")[0]
+    ckpt_name = os.path.basename(ckpt_path).split(".")[0]
     tag = "test" if args.testset else "train"
     save_predictions(detections, work_dir, ckpt_name, tag)
     result_dict, _ = dataset.evaluation(copy.deepcopy(detections),

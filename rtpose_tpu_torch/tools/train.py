@@ -1,0 +1,168 @@
+"""Train a detector with the port (PyTorch; CUDA by default).
+
+The CLI of ``tools/train.py`` plus ``--device``::
+
+    python -m rtpose_tpu_torch.tools.train CONFIG [--work_dir DIR] \
+        [--resume_from CKPT] [--validate] [--seed N] [--total_epochs N] \
+        [--stop_epoch N] [--lr_max X] [--pct_start X] [--div_factor X] \
+        [--loc_weight X] [--loc_weight_early X --loc_weight_early_steps N] \
+        [--device_preprocess] [--remat] [--device {cuda,cpu}]
+
+Writes ``<work_dir>/exp_config.py``, the text and JSON logs, and
+``<work_dir>/checkpoints/epoch_N.pth`` with a ``latest`` pointer, which
+``python -m rtpose_tpu_torch.tools.test`` evaluates as they are.  The seed
+initializes the weights (``models.init_weights`` on a ``torch.Generator``)
+and the loader's shuffle.  TensorBoard scalars are written when the
+config's ``log_config.hooks`` lists ``TensorboardLoggerHook`` and the
+``tensorboard`` package is installed.  The JAX CLI's multi-host, profiler,
+device-cache, streaming-cache and fused-epoch flags are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from datetime import datetime
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train a detector (PyTorch port)")
+    p.add_argument("config", help="train config file path")
+    p.add_argument("--work_dir", help="dir to save logs and models")
+    p.add_argument("--resume_from", help="checkpoint (.pth, or a dir with 'latest') to resume from")
+    p.add_argument("--validate", action="store_true",
+                   help="evaluate on the val set during training")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--total_epochs", type=int, default=None,
+                   help="override cfg.total_epochs")
+    p.add_argument("--stop_epoch", type=int, default=None,
+                   help="stop after this many epochs without shortening the lr "
+                        "schedule (total_epochs still sizes one-cycle)")
+    p.add_argument("--lr_max", type=float, default=None,
+                   help="override cfg.lr_config.lr_max (one-cycle peak)")
+    p.add_argument("--pct_start", type=float, default=None,
+                   help="override cfg.lr_config.pct_start (warm-up fraction)")
+    p.add_argument("--div_factor", type=float, default=None,
+                   help="override cfg.lr_config.div_factor (start lr = lr_max / div_factor)")
+    p.add_argument("--loc_weight", type=float, default=None,
+                   help="override the head's hm-vs-loc loss balance weight")
+    p.add_argument("--loc_weight_early", type=float, default=None,
+                   help="use this loc weight for the first --loc_weight_early_steps steps")
+    p.add_argument("--loc_weight_early_steps", type=int, default=0)
+    p.add_argument("--device_preprocess", action="store_true",
+                   help="ship ROI-cropped raw cubes; cast/normalize/layout run on "
+                        "the card (preprocess kernel)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the forward in the backward "
+                        "(torch.utils.checkpoint) instead of keeping activations")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="run on the card (default) or the CPU")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the training; returns the Trainer."""
+    args = parse_args(argv)
+    if args.loc_weight_early is not None and args.loc_weight_early_steps <= 0:
+        raise SystemExit("--loc_weight_early needs --loc_weight_early_steps N (> 0)")
+    import numpy as np
+    import torch
+
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg, resolve_device
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import BatchLoader
+    from rtpose_tpu_torch.engine import (Trainer, create_train_state, get_root_logger,
+                                         make_eval_step, make_train_step, run_eval)
+    from rtpose_tpu_torch.models import init_weights
+    from rtpose_tpu_torch.solver import (build_optimizer_from_cfg, make_one_cycle_fns,
+                                         piecewise_weight)
+
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    work_dir = args.work_dir or os.path.join(
+        "./work_dirs", os.path.basename(args.config)[:-3],
+        datetime.now().strftime("%Y%m%d_%H%M%S"))
+    os.makedirs(work_dir, exist_ok=True)
+    logger = get_root_logger(cfg.get("log_level", "INFO"), work_dir=work_dir)
+    with open(os.path.join(work_dir, "exp_config.py"), "w") as f:
+        f.write(cfg.text)
+    seed = args.seed or 0
+    if args.seed is not None:
+        logger.info(f"Set random seed to {args.seed}")
+        np.random.seed(args.seed)
+
+    asm = assemble(cfg)
+    total_epochs = args.total_epochs or int(cfg.total_epochs)
+    dataset = build_dataset_from_cfg(cfg.data, "train", max_poses=asm.target_spec.max_poses,
+                                     device_preprocess=args.device_preprocess)
+    preprocess = ((dataset.norm_start, dataset.norm_scale)
+                  if dataset.device_preprocess else None)
+    batch_size = int(cfg.data["samples_per_gpu"])
+    num_workers = int(cfg.data.get("workers_per_gpu", 0))
+    loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
+                         num_workers=num_workers)
+    total_steps = len(loader) * total_epochs
+
+    lr_cfg = dict(cfg.lr_config)
+    for k in ("lr_max", "pct_start", "div_factor"):
+        if getattr(args, k) is not None:
+            lr_cfg[k] = getattr(args, k)
+            cfg.lr_config[k] = getattr(args, k)   # build_optimizer_from_cfg reads cfg
+    lr_fn, _ = make_one_cycle_fns(total_steps, float(lr_cfg["lr_max"]),
+                                  tuple(lr_cfg.get("moms", (0.95, 0.85))),
+                                  float(lr_cfg.get("div_factor", 10.0)),
+                                  float(lr_cfg.get("pct_start", 0.4)))
+
+    model = init_weights(asm.model, torch.Generator().manual_seed(seed)).to(device)
+    optimizer = build_optimizer_from_cfg(cfg, list(model.parameters()), total_steps)
+    state = create_train_state(model, optimizer)
+    logger.info(f"Model parameter count: {sum(p.numel() for p in model.parameters())}")
+
+    loc_weight_fn = None
+    if args.loc_weight is not None or args.loc_weight_early is not None:
+        base_w = args.loc_weight if args.loc_weight is not None else float(asm.head.weight)
+        loc_weight_fn = piecewise_weight(base_w, args.loc_weight_early,
+                                         args.loc_weight_early_steps)
+        logger.info(f"loc-weight schedule: base={base_w} early={args.loc_weight_early}"
+                    f"@{args.loc_weight_early_steps} steps")
+    train_step = make_train_step(model, asm.head, asm.target_spec, optimizer, lr_fn=lr_fn,
+                                 sparse_reg=asm.sparse_head, remat=args.remat,
+                                 preprocess=preprocess, loc_weight_fn=loc_weight_fn)
+    log_cfg = dict(cfg.log_config)
+    # TensorBoard scalars where the config lists the reference's hook
+    tensorboard = any(dict(h).get("type") == "TensorboardLoggerHook"
+                      for h in log_cfg.get("hooks", []))
+    trainer = Trainer(train_step, state, work_dir=work_dir, total_epochs=total_epochs,
+                      device=device, lr_fn=lr_fn, enable_tensorboard=tensorboard,
+                      log_interval=int(log_cfg.get("interval", 20)),
+                      checkpoint_interval=int(dict(cfg.checkpoint_config).get("interval", 5)),
+                      meta=dict(config=cfg.text), logger=logger, stop_epoch=args.stop_epoch)
+    if args.resume_from or cfg.get("resume_from"):
+        trainer.resume(args.resume_from or cfg.resume_from)
+
+    eval_fn = val_loader = None
+    if args.validate:
+        val_dataset = build_dataset_from_cfg(cfg.data, "val",
+                                             max_poses=asm.target_spec.max_poses,
+                                             device_preprocess=args.device_preprocess)
+        val_loader = BatchLoader(val_dataset, batch_size=batch_size, num_workers=num_workers)
+        eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
+                                   preprocess=preprocess)
+
+        def eval_fn(state, loader, epoch):
+            dets, _ = run_eval(eval_step, loader, asm.decode_spec, device=device,
+                               one_hm=asm.one_hm, logger=logger)
+            res, _ = val_dataset.evaluation(dets)
+            for k, v in res["results"].items():
+                logger.info(f"[val epoch {epoch}] {k}: {v:.2f}")
+
+    workflow = [tuple(w) for w in cfg.get("workflow", [("train", 1)])]
+    if args.validate and ("val", 1) not in workflow:
+        workflow.append(("val", 1))
+    trainer.run(loader, val_loader, workflow=workflow, eval_fn=eval_fn)
+    logger.info("training complete")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,10 @@ JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Tolerances: preprocess, 1e-6 relative (the same float32 ops in the same
-order); conv, one bf16 ulp (2^-7 relative) plus 2e-3 of the output range
-(float32 sums in two orders, each rounded once to bf16).
+order); conv and its grad-input, one bf16 ulp (2^-7 relative) plus 2e-3 of
+the output range (float32 sums in two orders, each rounded once to bf16);
+grad-weight, the library's bf16 weight-gradient against the float32 one on
+the same bf16 operands, one bf16 ulp plus 2e-3 of the largest value.
 """
 
 import pytest
@@ -101,3 +103,58 @@ def test_module_launches_kernel_with_kept_weights(dev):
     torch.testing.assert_close(c.float(), want.float(), **tol)
     torch.testing.assert_close(a.float(), -want.float(), **tol)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,with_bias", [((2, 16, 64, 160), False), ((2, 8, 32, 80), False),
+                                             ((1, 3, 7, 21), True)])
+def test_conv_backward_matches_plain(dev, shape, with_bias):
+    """``Conv3dK3``'s backward on the card: grad-input through the kernel on
+    flipped, transposed weights (one ``conv3d_k3_bwd`` launch), grad-weight
+    and grad-bias in float32, against autograd of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((*shape, 32), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((32, 32, 3, 3, 3), generator=g, device=dev) * 0.05
+    b = torch.randn((32,), generator=g, device=dev) if with_bias else None
+    go = torch.randn((*shape, 32), generator=g, device=dev).to(torch.bfloat16)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    bk = b.clone().requires_grad_() if with_bias else None
+    ops.reset_launch_counts()
+    out = conv_k3.Conv3dK3.apply(xk, wk, bk)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"preprocess": 0, "conv3d_k3": 1, "conv3d_k3_bwd": 1}
+    want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
+    torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
+                               atol=2e-3 * want_gx.float().abs().max().item())
+    xr, wr = x.float().requires_grad_(), w.clone().requires_grad_()
+    torch.nn.functional.conv3d(xr.permute(0, 4, 1, 2, 3), wr.to(torch.bfloat16).float(),
+                               padding=1).permute(0, 2, 3, 4, 1).backward(go.float())
+    assert wk.grad.dtype == torch.float32
+    torch.testing.assert_close(wk.grad, wr.grad, rtol=2.0 ** -7,
+                               atol=2e-3 * wr.grad.abs().max().item())
+    if with_bias:
+        torch.testing.assert_close(bk.grad, go.float().sum((0, 1, 2, 3)), rtol=1e-5, atol=1e-4)
+
+
+def test_module_grad_mode_has_grad_fn_and_right_gradients(dev):
+    """``TorchConv3d`` under grad mode on the card returns a tensor with a
+    ``grad_fn``; its gradients match autograd of the plain version."""
+    from rtpose_tpu_torch.models.layers import TorchConv3d
+    g = torch.Generator(device=dev).manual_seed(4)
+    m = TorchConv3d(32, 32, bias=False, dtype="bfloat16").to(dev)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g, device=dev) * 0.05)
+    x = torch.randn((2, 4, 8, 20, 32), generator=g, device=dev).requires_grad_()
+    go = torch.randn((2, 4, 8, 20, 32), generator=g, device=dev).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out = m(x)
+    assert out.grad_fn is not None
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conv3d_k3_bwd"] == 1
+    xr, wr = x.detach().clone().requires_grad_(), m.weight.detach().clone().requires_grad_()
+    conv_k3.conv3d_k3_reference(xr, wr).backward(go)
+    torch.testing.assert_close(x.grad, xr.grad, rtol=2.0 ** -7,
+                               atol=2e-3 * xr.grad.abs().max().item())
+    torch.testing.assert_close(m.weight.grad, wr.grad, rtol=2.0 ** -7,
+                               atol=2e-3 * wr.grad.abs().max().item())

@@ -1,4 +1,4 @@
-"""The port stands alone: importing ``rtpose_tpu_torch`` (and its CLI and
+"""The port stands alone: importing ``rtpose_tpu_torch`` (and its CLIs and
 ``chip_smoke.py``) loads no JAX, flax, optax, orbax or ``rtpose_tpu``
 module, and no source file of the package imports them."""
 
@@ -20,6 +20,7 @@ def _top_level(name: str) -> str:
 def test_fresh_interpreter_loads_no_jax():
     code = (
         "import sys, rtpose_tpu_torch, rtpose_tpu_torch.tools.test, chip_smoke\n"
+        "import rtpose_tpu_torch.tools.train, rtpose_tpu_torch.solver\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
