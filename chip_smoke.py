@@ -9,8 +9,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
   3. preprocess kernel (K1 batched / K2 single cube) against its plain
      version: a real ROI crop of a (32, 32, 128, 256) f16 cube, and the
      identity ROI at (8, 32, 16, 64, 160) in f16, bf16 and f32;
-  4. conv kernel (K3) against its plain version at the flagship shapes
-     (and a ragged one with bias), timed beside bf16 F.conv3d;
+  4. conv kernel (K3) against its plain version at the main path's four
+     shapes (B=1 and B=8, full and half resolution), a ragged one with
+     bias and one with B * Z > 65535; two launches bit-identical (forward
+     and grad-input); device times beside the plain version and bf16
+     F.conv3d at the four shapes (kernel / library, TFLOP/s, share of the
+     bound);
   5. the flagship eval path end to end: a synthetic ROI-only dataset of
      300 test frames at the flagship geometry, seeded random weights saved
      as .pth, and ``rtpose_tpu_torch.tools.test`` on configs/cruw_pose/
@@ -25,9 +29,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      same frame and weights through the port on the CPU in float32;
   9. the conv backward (``Conv3dK3``): grad-input through the K3 kernel on
      flipped, transposed weights, and the library grad-weight, against their
-     plain versions at the training shapes (B=8, full and half resolution)
-     and a ragged shape with bias, timed beside cuDNN's bf16 grad-input; the
-     forward kernel at B=8;
+     plain versions at the training shapes (B=8, full and half resolution),
+     a ragged shape with bias and B * Z > 65535; grad-input timed beside its
+     plain version and cuDNN's bf16 grad-input at the four main-path shapes;
  10. ``TorchConv3d`` in grad mode on the card: its output has a ``grad_fn``
      and its gradients match autograd of the plain version;
  11. the flagship training path end to end: a synthetic ROI-only root of
@@ -230,7 +234,35 @@ def phase_preprocess(dev):
                 shape="(1, 32, 16, 64, 160) f16 -> f32")
 
 
+# the shapes the main path gives K3: eval B=1 and training B=8, at full
+# and half resolution of the flagship grid
+K3_SHAPES = ((1, 16, 64, 160), (1, 8, 32, 80), (8, 16, 64, 160), (8, 8, 32, 80))
+
+
+def k3_row(ms, plain_ms, lib_ms, x, **extra):
+    """One K3 launch's numbers: device times, its bound (the larger of its
+    operations over the bf16 tensor-core peak and its bytes, input and
+    output once and the weights once, over the memory rate), TFLOP/s, the
+    share of the bound and the ratio to the library call."""
+    flops = 2 * 27 * 32 * 32 * (x.numel() // 32)
+    bound = max(flops / PEAK_BF16_FLOPS, (2 * x.numel() * 2 + 27 * 32 * 32 * 2) / PEAK_BYTES) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                gflop=flops / 1e9, tflops=flops / ms / 1e9, share_of_bound=bound / ms,
+                kernel_over_library=ms / lib_ms, **extra)
+
+
+def k3_print(tag, shape, r):
+    print(f"[{tag}] {shape}: {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+          f"{100 * r['share_of_bound']:.1f} % of bound {r['bound_ms']:.4f} ms), plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, kernel / library "
+          f"{r['kernel_over_library']:.3f}")
+
+
 def phase_conv(dev):
+    """K3's forward against its plain version at the main path's shapes, a
+    ragged shape with bias and B * Z above 65535; two launches
+    bit-identical; device times beside the plain version and bf16
+    ``F.conv3d`` at the four main-path shapes."""
     import torch
     import torch.nn.functional as F
     from rtpose_tpu_torch.ops import conv_k3 as ck
@@ -239,8 +271,8 @@ def phase_conv(dev):
     w = (torch.randn((32, 32, 3, 3, 3), generator=gen, device=dev) * (2 / 864) ** 0.5)
     bias = torch.randn((32,), generator=gen, device=dev)
     errs = {}
-    cases = [((1, 16, 64, 160), None), ((1, 8, 32, 80), None),
-             ((8, 16, 64, 160), None), ((2, 5, 13, 37), bias)]
+    cases = [(shape, None) for shape in K3_SHAPES] + [((2, 5, 13, 37), bias),
+                                                     ((1, 70000, 2, 3), bias)]
     for shape, b in cases:
         x = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
         want = ck.conv3d_k3_reference(x, w, b)
@@ -248,40 +280,38 @@ def phase_conv(dev):
             f"conv {shape}", ck.conv3d_k3(x, w, b), want, CONV_RTOL,
             CONV_ATOL_FRAC * want.float().abs().max().item())
     print(f"[conv] max abs err by shape: {errs}")
-    out = {}
-    for shape in ((1, 16, 64, 160), (1, 8, 32, 80)):
+    x = torch.randn((8, 16, 64, 160, 32), generator=gen, device=dev).to(torch.bfloat16)
+    if not (torch.equal(ck.conv3d_k3(x, w, bias), ck.conv3d_k3(x, w, bias))
+            and torch.equal(ck.grad_input(x, w), ck.grad_input(x, w))):
+        fail("K3: two launches on the same inputs differ")
+    print("[conv] two launches bit-identical at (8, 16, 64, 160), forward and grad-input")
+    rows = {}
+    wr, _ = ck.prepare(w)
+    wb = w.to(torch.bfloat16)
+    for shape in K3_SHAPES:
         x = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
-        wb = w.to(torch.bfloat16)
-        wr, _ = ck.prepare(w)
         xc = x.permute(0, 4, 1, 2, 3)
-        ms = device_ms(lambda: ck.launch(x, wr))
-        wrap_ms = wrapper_ms(lambda: ck.conv3d_k3(x, w))
-        plain_ms = device_ms(lambda: ck.conv3d_k3_reference(x, w))
-        lib_ms = device_ms(lambda: F.conv3d(xc, wb, padding=1))
-        vox = x.numel() // 32
-        flops = 2 * 27 * 32 * 32 * vox
-        bound = max(flops / PEAK_BF16_FLOPS, (2 * x.numel() * 2 + w.numel() * 2)
-                    / PEAK_BYTES) * 1e3
-        out[shape] = (ms, plain_ms, lib_ms, bound, wrap_ms)
-        print(f"[conv] {shape}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; wrapper "
-              f"{wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, F.conv3d bf16 "
-              f"{lib_ms:.4f} ms, bound {bound:.4f} ms")
-    ms, plain_ms, lib_ms, bound, wrap_ms = out[(1, 16, 64, 160)]
-    half = out[(1, 8, 32, 80)]
+        r = k3_row(device_ms(lambda: ck.launch(x, wr)),
+                   device_ms(lambda: ck.conv3d_k3_reference(x, w)),
+                   device_ms(lambda: F.conv3d(xc, wb, padding=1)), x,
+                   wrapper_ms=wrapper_ms(lambda: ck.conv3d_k3(x, w)),
+                   plan=ck.plan(*shape, ck._sm_count(dev.index or 0))._asdict())
+        rows[str(shape)] = r
+        k3_print("conv", shape, r)
+    main = rows[str(K3_SHAPES[0])]
     return dict(name="conv3d_k3", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3.cu",
                 replaces="rtpose_tpu/ops/pallas_conv.py:176",
-                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="operations", library_ms=lib_ms,
-                wrapper_ms=wrap_ms, shape="(1, 16, 64, 160, 32) bf16",
-                half_res=dict(ms=half[0], plain_ms=half[1], library_ms=half[2],
-                              bound_ms=half[3], wrapper_ms=half[4]))
+                max_abs_err=max(errs.values()), ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="operations", library_ms=main["library_ms"],
+                wrapper_ms=main["wrapper_ms"], shape="(1, 16, 64, 160, 32) bf16",
+                deterministic=True, shapes=rows)
 
 
 def phase_conv_bwd(dev):
     """K3's backward against its plain versions; device times of grad-input
-    (the kernel on flipped weights), its plain version, cuDNN's bf16
-    grad-input, the library grad-weight the port calls, and the forward
-    kernel at B=8."""
+    (the kernel on flipped weights) beside its plain version and cuDNN's
+    bf16 grad-input at the four main-path shapes, and of the library
+    grad-weight the port calls."""
     import torch
     from rtpose_tpu_torch import ops
     from rtpose_tpu_torch.ops import conv_k3 as ck
@@ -316,53 +346,44 @@ def phase_conv_bwd(dev):
                                           CONV_RTOL, CONV_ATOL_FRAC * gw_plain.abs().max().item())
         if b is not None:
             check_close("conv grad-bias", bk.grad, g.float().sum((0, 1, 2, 3)), 1e-5, 1e-3)
+    g = torch.randn((1, 70000, 2, 3, 32), generator=gen, device=dev).to(torch.bfloat16)
+    want = ck.conv3d_k3_reference(g, ck.flip_transpose(w))
+    errs[str((1, 70000, 2, 3))] = check_close(
+        "conv grad-input (1, 70000, 2, 3)", ck.grad_input(g, w), want, CONV_RTOL,
+        CONV_ATOL_FRAC * want.float().abs().max().item())
     print(f"[conv bwd] grad-input max abs err by shape: {errs}; grad-weight: {gw_errs}")
-    out = {}
-    for shape in ((8, 16, 64, 160), (8, 8, 32, 80)):
+    rows = {}
+    wrf = ck.prepare_flipped(w)
+    wb = w.to(torch.bfloat16)
+    wft = ck.flip_transpose(w)
+    for shape in K3_SHAPES:
         x = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
-        wrf = ck.prepare_flipped(w)
-        wr, _ = ck.prepare(w)
-        wb = w.to(torch.bfloat16)
         xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-        wft = ck.flip_transpose(w)
 
         def lib_grad(mask):
             return lambda: torch.ops.aten.convolution_backward(
                 gc, xc, wb, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, mask)
 
-        ms = device_ms(lambda: ck.launch(g, wrf))
-        wrap_ms = wrapper_ms(lambda: ck.grad_input(g, w))
-        plain_ms = device_ms(lambda: ck.conv3d_k3_reference(g, wft))
-        lib_ms = device_ms(lib_grad([True, False, False]))
-        gw_ms = device_ms(lambda: ck.grad_weight(x, g, w))
-        gw_lib_ms = device_ms(lib_grad([False, True, False]))
-        fwd_ms = device_ms(lambda: ck.launch(x, wr))
-        vox = x.numel() // 32
-        flops = 2 * 27 * 32 * 32 * vox
-        bound = max(flops / PEAK_BF16_FLOPS, (2 * x.numel() * 2 + w.numel() * 2)
-                    / PEAK_BYTES) * 1e3
-        out[shape] = dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound, grad_weight_ms=gw_ms,
-                          grad_weight_library_call_ms=gw_lib_ms, fwd_ms=fwd_ms,
-                          gflop=flops / 1e9)
-        print(f"[conv bwd] {shape}: grad-input {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
-              f"wrapper {wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, cuDNN bf16 grad-input "
-              f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP); forward "
-              f"kernel {fwd_ms:.4f} ms")
-        print(f"[conv bwd] {shape}: grad-weight (library, the port's call) {gw_ms:.4f} ms; "
-              f"bare convolution_backward {gw_lib_ms:.4f} ms")
-    full, half = out[(8, 16, 64, 160)], out[(8, 8, 32, 80)]
-    bwd = dict(name="conv3d_k3_bwd", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3.cu",
-               replaces="rtpose_tpu/ops/pallas_conv.py:215",
-               max_abs_err=max(errs.values()), ms=full["ms"], plain_ms=full["plain_ms"],
-               bound_ms=full["bound_ms"], bound_by="operations", library_ms=full["library_ms"],
-               wrapper_ms=full["wrapper_ms"], shape="(8, 16, 64, 160, 32) bf16 grad-input",
-               grad_weight_ms=full["grad_weight_ms"], grad_weight_max_abs_err=max(gw_errs.values()),
-               half_res={k: half[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "wrapper_ms", "grad_weight_ms")})
-    return bwd, dict(full_ms=full["fwd_ms"], half_ms=half["fwd_ms"],
-                     bound_ms=full["bound_ms"], half_bound_ms=half["bound_ms"])
+        r = k3_row(device_ms(lambda: ck.launch(g, wrf)),
+                   device_ms(lambda: ck.conv3d_k3_reference(g, wft)),
+                   device_ms(lib_grad([True, False, False])), g,
+                   wrapper_ms=wrapper_ms(lambda: ck.grad_input(g, w)),
+                   grad_weight_ms=device_ms(lambda: ck.grad_weight(x, g, w)),
+                   grad_weight_library_call_ms=device_ms(lib_grad([False, True, False])))
+        rows[str(shape)] = r
+        k3_print("conv bwd grad-input", shape, r)
+        print(f"[conv bwd] {shape}: grad-weight (library, the port's call) "
+              f"{r['grad_weight_ms']:.4f} ms; bare convolution_backward "
+              f"{r['grad_weight_library_call_ms']:.4f} ms")
+    main = rows[str(K3_SHAPES[2])]
+    return dict(name="conv3d_k3_bwd", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3.cu",
+                replaces="rtpose_tpu/ops/pallas_conv.py:215",
+                max_abs_err=max(errs.values()), ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="operations", library_ms=main["library_ms"],
+                wrapper_ms=main["wrapper_ms"], shape="(8, 16, 64, 160, 32) bf16 grad-input",
+                grad_weight_ms=main["grad_weight_ms"],
+                grad_weight_max_abs_err=max(gw_errs.values()), shapes=rows)
 
 
 def phase_autograd(dev):
@@ -490,12 +511,16 @@ def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
     n_ops = sum(e.count for e in ops) / FRAMES
     print(f"[trace] {traced_wall:.1f} s traced run, {time.perf_counter() - t0:.1f} s to "
           f"read the trace; device busy {busy} ms/frame, {n_ops} device operations/frame")
+    k3 = [e for e in ops if "conv3d_k3_kernel" in e.key]
+    print(f"[trace] K3 kernel: {sum(e.self_device_time_total for e in k3) / 1e3 / FRAMES} "
+          f"ms/frame in {sum(e.count for e in k3) / FRAMES} launches/frame")
     print(f"[trace] {'device operation':<80} {'ms/frame':>9} {'calls/frame':>11}")
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         print(f"[trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3 / FRAMES:9.4f} "
               f"{e.count / FRAMES:11.2f}")
     return dict(frames=FRAMES, window_frames=window, speed_ms_per_frame=speed,
                 speed_median_ms=med, device_busy_ms_per_frame=busy,
+                k3_ms_per_frame=sum(e.self_device_time_total for e in k3) / 1e3 / FRAMES,
                 device_ops_per_frame=n_ops, device_idle_share=1 - busy / med)
 
 
@@ -653,11 +678,16 @@ def phase_train_trace(tmp, cfg_path, median_ms):
     n_ops = sum(e.count for e in ops) / steps
     print(f"[train trace] {steps} steps, {traced_wall:.1f} s traced; device busy {busy} "
           f"ms/step, {n_ops} device operations/step, idle share {1 - busy / median_ms}")
+    k3 = [e for e in ops if "conv3d_k3_kernel" in e.key]
+    print(f"[train trace] K3 kernel (forward and grad-input): "
+          f"{sum(e.self_device_time_total for e in k3) / 1e3 / steps} ms/step in "
+          f"{sum(e.count for e in k3) / steps} launches/step")
     print(f"[train trace] {'device operation':<80} {'ms/step':>9} {'calls/step':>10}")
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
         print(f"[train trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3 / steps:9.4f} "
               f"{e.count / steps:10.2f}")
     return dict(traced_steps=steps, device_busy_ms_per_step=busy,
+                k3_ms_per_step=sum(e.self_device_time_total for e in k3) / 1e3 / steps,
                 device_ops_per_step=n_ops, device_idle_share=1 - busy / median_ms)
 
 
@@ -757,10 +787,7 @@ def main() -> int:
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [phase_preprocess(dev), phase_conv(dev)]
-    bwd, fwd_b8 = phase_conv_bwd(dev)
-    kernels[1]["b8"] = fwd_b8
-    kernels.append(bwd)
+    kernels = [phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)

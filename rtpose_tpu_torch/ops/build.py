@@ -32,7 +32,7 @@ KERNELS = {
     "preprocess": ("preprocess.cu", "rtpose_preprocess",
                    [_P, _P] + [_I] * 12 + [_F, _F, _P]),
     "conv_k3": ("conv_k3.cu", "rtpose_conv3d_k3",
-                [_P, _P, _P, _P] + [_I] * 4 + [_P]),
+                [_P, _P, _P, _P] + [_I] * 10 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,9 @@
 Counterpart of ``rtpose_tpu/ops/pallas_conv.py`` (the Pallas kernel K3,
 ``_pallas_forward``): the CUDA kernel ``csrc/conv_k3.cu`` computes the same
 conv on the unfolded (B, Z, Y, X, 32) layout, with float32 accumulation and
-one rounding to bf16.  ``models.layers.TorchConv3d`` dispatches every CUDA
-bf16 conv of this shape here.
+one rounding to bf16 (TMA-fed input planes, weights resident in shared
+memory, wgmma).  ``models.layers.TorchConv3d`` dispatches every CUDA bf16
+conv of this shape here.
 
 The backward (``_fused_bwd``, ``pallas_conv.py:211-225``) is ``Conv3dK3``:
 grad-input is the same kernel on the flipped, channel-transposed weights
@@ -17,9 +18,11 @@ the JAX package used XLA's.
   tensor takes the plain version.
 * ``prepare`` + ``launch`` — the same launch split in two: ``prepare``
   re-lays torch-layout (Co, Ci, 3, 3, 3) weights to the kernel's
-  (27, 32, 32) [tap][ci][co] bf16 and the bias to float32, once;
-  ``launch`` runs the kernel on them (``TorchConv3d`` keeps the prepared
-  weights between calls).
+  (9, 4, 3, 32, 8) [dy * 3 + dx][ci // 8][dz][co][ci % 8] bf16 and the
+  bias to float32, once; ``launch`` runs the kernel on them (``TorchConv3d`` keeps the
+  prepared weights between calls).
+* ``plan`` — the launch plan the kernel runs: tile shape, padded row width,
+  stages of the input ring, shared memory and grid.
 * ``conv3d_k3_reference`` — the plain version: ``F.conv3d`` in float32 on
   the bf16-rounded operands, bias added in float32, rounded to bf16.
 * ``Conv3dK3`` — the autograd Function over the kernel; ``grad_input`` /
@@ -30,7 +33,8 @@ the JAX package used XLA's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,10 +67,14 @@ def conv3d_k3_reference(x: torch.Tensor, w: torch.Tensor,
 
 def prepare(w: torch.Tensor, bias: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(Co, Ci, 3, 3, 3) weights, (Co,) bias -> the kernel's (27, 32, 32)
-    bf16 weights and float32 bias."""
-    wr = w.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0).reshape(27, C, C)
+    """(Co, Ci, 3, 3, 3) weights, (Co,) bias -> the kernel's (9, 4, 3, 32, 8)
+    [dy * 3 + dx][ci // 8][dz][co][ci % 8] bf16 weights and float32 bias.
+    For one tap (dy, dx) and 8 input channels, the 96 rows (dz, co) are the
+    wgmma's N, each 8-row block one 128-byte core matrix."""
+    wr = (w.detach().to(torch.bfloat16).permute(3, 4, 1, 2, 0)   # ky kx ci kz co
+          .reshape(9, 4, 8, 3, C).permute(0, 1, 3, 4, 2))
     return wr.contiguous(), None if bias is None else bias.detach().float().contiguous()
+
 
 
 def flip_transpose(w: torch.Tensor) -> torch.Tensor:
@@ -76,9 +84,105 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_flipped(w: torch.Tensor) -> torch.Tensor:
-    """(Co, Ci, 3, 3, 3) weights -> the kernel's (27, 32, 32) bf16 layout of
-    their ``flip_transpose``: the weights of the grad-input launch."""
+    """(Co, Ci, 3, 3, 3) weights -> the kernel's (9, 4, 3, 32, 8) bf16 layout
+    of their ``flip_transpose``: the weights of the grad-input launch."""
     return prepare(flip_transpose(w))[0]
+
+
+SMEM_LIMIT = 232448        # shared memory a block may use on the H100 (227 KB)
+WEIGHT_BYTES = 27 * C * C * 2   # (9, 4, 3, 32, 8) bf16
+MAX_STAGES = 8
+MIN_STAGES = 4            # the plane in use and three loading behind it
+PLANE_COST, STAGE_COST = 0.25, 0.1   # see ``candidate``
+X_TILES = (14, 30, 40, 62, 80)   # output columns per tile tried besides X itself
+
+
+class Plan(NamedTuple):
+    """A launch of the kernel: output tiles of ``ty`` rows x ``tx`` columns
+    (row width ``wp = tx + 2`` with the halo), ``2 * nbw`` 64-row wgmma
+    blocks per tile (``nbw`` per consumer warpgroup), a ring of ``stages``
+    input planes of ``positions`` 16-byte positions per 8-channel chunk;
+    ``tiles`` tile-planes (B * ny * nx * Z, z fastest) split into ``grid``
+    contiguous ranges, one per block, the busiest of which reads
+    ``max_planes`` input planes."""
+    tx: int
+    ty: int
+    wp: int
+    nbw: int
+    positions: int
+    stages: int
+    nx: int
+    ny: int
+    tiles: int
+    grid: int
+    smem: int
+    max_planes: int
+
+
+def segments(tiles: int, grid: int, Z: int):
+    """Per block, its runs of output planes: (block, column, za, zb) for each
+    run [za, zb) of one column in the block's contiguous range of
+    tile-planes (z fastest), as the kernel's ``segment_at`` cuts it."""
+    for blk in range(grid):
+        L, end = tiles * blk // grid, tiles * (blk + 1) // grid
+        while L < end:
+            col, za = divmod(L, Z)
+            zb = min(Z, za + (end - L))
+            yield blk, col, za, zb
+            L += zb - za
+
+
+def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
+              ) -> Optional[Tuple[tuple, Plan]]:
+    """The plan with output tiles ``tx`` wide and ``2 * nbw`` 64-row blocks
+    (``ty`` as many rows as fit), and its cost key.  The cost, in the time
+    of one 64-row block's products with one input plane: the busiest
+    block's input planes, each ``2 * nbw`` blocks plus ``PLANE_COST`` for
+    its waits and epilogue, and ``STAGE_COST`` per KB of a stage for the
+    prologue that loads the first planes (both fitted to the kernel's
+    device times over these candidates at the flagship shapes on an H100);
+    then the total work, then the widest tile.  None if the rows or the
+    ring (at least ``MIN_STAGES``) and the weights in ``SMEM_LIMIT`` do not
+    fit."""
+    wp = tx + 2
+    rows = 2 * nbw * 64
+    if wp > rows or wp > 256:
+        return None
+    ty = min(rows // wp, Y)
+    # the last block's bottom-right tap reads rows + 2 wp + 2 positions
+    positions = -(-max((ty + 2) * wp, rows + 2 * wp + 2) // 8) * 8
+    stages = min(MAX_STAGES, (SMEM_LIMIT - WEIGHT_BYTES - 8 * (2 * MAX_STAGES + 3))
+                 // (64 * positions))
+    if stages < MIN_STAGES:
+        return None
+    nx, ny = -(-X // tx), -(-Y // ty)
+    tiles = B * ny * nx * Z
+    grid = min(sms, tiles)
+    per_block = [0] * grid
+    for blk, _, za, zb in segments(tiles, grid, Z):
+        per_block[blk] += min(zb, Z - 1) - max(za - 1, 0) + 1   # input planes za - 1 .. zb
+    max_planes = max(per_block)
+    smem = WEIGHT_BYTES + stages * 64 * positions + 8 * (2 * stages + 3)
+    cost = max_planes * (2 * nbw + PLANE_COST) + STAGE_COST * positions * 64 / 1024
+    return (cost, tiles * nbw, -tx), Plan(tx, ty, wp, nbw, positions, stages, nx, ny, tiles,
+                                          grid, smem, max_planes)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, Z: int, Y: int, X: int, sms: int) -> Plan:
+    """The launch plan for a (B, Z, Y, X, 32) input on a card of ``sms``
+    SMs: the cheapest ``candidate`` over tile widths ``X_TILES`` and X
+    itself and one or two blocks per warpgroup."""
+    found = [c for tx in {t for t in X_TILES if t < X} | {X} for nbw in (1, 2)
+             if (c := candidate(B, Z, Y, X, sms, tx, nbw)) is not None]
+    if not found:
+        raise ValueError(f"conv3d_k3: no launch plan for {(B, Z, Y, X)}")
+    return min(found)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
@@ -104,17 +208,19 @@ def launch(x: torch.Tensor, wr: torch.Tensor,
     return out
 
 
-def _run(x: torch.Tensor, wr: torch.Tensor,
-         bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _run(x: torch.Tensor, wr: torch.Tensor, bias: Optional[torch.Tensor],
+         p: Optional[Plan] = None) -> torch.Tensor:
+    """One launch, on ``plan``'s launch plan unless ``p`` names another
+    (``tools.k3_plans`` times each candidate)."""
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 5 \
             or x.shape[-1] != C:
         raise ValueError(f"conv3d_k3: needs a CUDA (B, Z, Y, X, 32) bf16 input, "
                          f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("conv3d_k3: input must be contiguous and 16-byte aligned")
-    if (tuple(wr.shape) != (27, C, C) or wr.dtype != torch.bfloat16
-            or not wr.is_contiguous()):
-        raise ValueError(f"conv3d_k3: weights must be prepared (27, 32, 32) bf16, "
+    if (tuple(wr.shape) != (9, 4, 3, C, 8) or wr.dtype != torch.bfloat16
+            or not wr.is_contiguous() or wr.data_ptr() % 16):
+        raise ValueError(f"conv3d_k3: weights must be prepared (9, 4, 3, 32, 8) bf16, "
                          f"got {tuple(wr.shape)} {wr.dtype}")
     if bias is not None and (tuple(bias.shape) != (C,) or bias.dtype != torch.float32
                              or not bias.is_contiguous()):
@@ -123,12 +229,15 @@ def _run(x: torch.Tensor, wr: torch.Tensor,
     if wr.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError("conv3d_k3: weights and bias must be on the input's device")
     B, Z, Y, X, _ = x.shape
-    if B * Z > 65535:
-        raise ValueError("conv3d_k3: B * Z exceeds the launch grid")
     out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    if p is None:
+        p = plan(B, Z, Y, X, _sm_count(x.device.index if x.device.index is not None
+                                       else torch.cuda.current_device()))
     rc = build.kernel("conv_k3")(
         x.data_ptr(), wr.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), B, Z, Y, X,
+        out.data_ptr(), B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "conv3d_k3 kernel")
     return out

@@ -50,7 +50,13 @@ def test_preprocess_kernel_matches_plain(dev, dtype, shape, roi):
 
 @pytest.mark.parametrize("shape,with_bias", [
     ((1, 16, 64, 160), False), ((2, 8, 32, 80), True), ((1, 3, 7, 21), True),
-    ((3, 1, 1, 1), False)])
+    ((3, 1, 1, 1), False),
+    # ragged and degenerate: X, Y not multiples of the tile, Z = 1, one row,
+    # wider than one x tile, tall enough for many y tiles
+    ((2, 5, 13, 37), True), ((1, 1, 64, 160), False), ((2, 3, 1, 200), True),
+    ((1, 2, 300, 7), False), ((8, 8, 32, 80), False), ((1, 4, 9, 81), True),
+    # B * Z above the 65535 a grid dimension holds
+    ((1, 70000, 2, 3), False)])
 def test_conv_kernel_matches_plain(dev, shape, with_bias):
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((*shape, 32), generator=g, device=dev).to(torch.bfloat16)
@@ -63,6 +69,17 @@ def test_conv_kernel_matches_plain(dev, shape, with_bias):
     want = conv_k3.conv3d_k3_reference(x, w, b)
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want.float().abs().max().item())
+
+
+def test_conv_kernel_is_deterministic(dev):
+    """Two launches on the same inputs give bit-identical outputs (no split-K,
+    no atomics), forward and grad-input."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 16, 64, 160, 32), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((32, 32, 3, 3, 3), generator=g, device=dev) * 0.05
+    b = torch.randn((32,), generator=g, device=dev)
+    assert torch.equal(conv_k3.conv3d_k3(x, w, b), conv_k3.conv3d_k3(x, w, b))
+    assert torch.equal(conv_k3.grad_input(x, w), conv_k3.grad_input(x, w))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -81,7 +98,7 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 def test_module_launches_kernel_with_kept_weights(dev):
     """``TorchConv3d`` under inference_mode launches the kernel with its kept
-    (27, 32, 32) weights, and refreshes them when the parameter changes."""
+    (9, 4, 3, 32, 8) weights, and refreshes them when the parameter changes."""
     from rtpose_tpu_torch.models.layers import TorchConv3d
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((1, 4, 8, 20, 32), generator=g, device=dev).to(torch.bfloat16)
@@ -92,7 +109,7 @@ def test_module_launches_kernel_with_kept_weights(dev):
     with torch.inference_mode():
         a, b = m(x), m(x)
         assert ops.launch_counts()["conv3d_k3"] == 2
-        assert m._prepared[2][0].shape == (27, 32, 32)
+        assert m._prepared[2][0].shape == (9, 4, 3, 32, 8)
     with torch.no_grad():
         m.weight.mul_(-1.0)
     with torch.inference_mode():
