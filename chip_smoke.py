@@ -44,7 +44,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the card's idle share;
  13. ``rtpose_tpu_torch.tools.test`` evaluates the trained checkpoint;
  14. one train step's loss and gradients on the card (bf16 + kernels)
-     against the CPU in float32, same weights and sample, B=1.
+     against the CPU in float32, same weights and sample, B=1;
+ 15. the device cache's content: ``DeviceCachedLoader`` against
+     ``BatchLoader`` over one epoch on the card (same indices, bit-equal
+     tensors), and bf16 / float8_e4m3fn caches equal to the cast of the same
+     rows with the labels untouched; the cache's bytes;
+ 16. ``tools.train --device_cache``, per step: the losses against the host
+     loader's run (phase 11) of the same seed, ms/step;
+ 17. ``tools.train --device_cache --fuse_epochs``: every step a replay of
+     one captured CUDA graph (replays = steps; the wrappers' launch counts
+     read the warm-up step and the capture and nothing else), finite
+     losses, the first three steps' losses and the final parameters against
+     phase 16's, ms/step (epoch time over steps), then one more fused epoch
+     under torch.profiler: the kernels the replays launched, counted by
+     name in the trace (preprocess once and the conv 28 times per step),
+     device ms/step and the idle share; and the comparison's control: the
+     same run with 1.2 times the config's peak lr must fall outside the
+     tolerances that held the right one;
+ 18. ``tools.train --stream_cache_gb``: one epoch over four chunks, every
+     sample once, at most two chunks resident, ms/step;
+ 19. ``tools.train --device_cache --profile 5``: the Chrome trace exists and
+     holds the CUDA kernels.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
@@ -52,9 +72,15 @@ wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
 ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
 ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
-``launches`` is its count on its own path (eval for the preprocess and
-forward conv kernels, training for the conv backward); ``train_launches``
-gives every kernel's count on the training path.
+``launches`` is its wrapper's count on its own path (eval for the
+preprocess and forward conv kernels, training for the conv backward; the
+single-cube preprocess form is on no path of the port, as in the JAX
+package: its count is read over the eval and training runs and is 0);
+``train_launches`` gives every kernel's count on the per-step training
+path.  The replays of a fused epoch pass no wrapper, so the fused path's
+launches are kernels counted by name in the traced fused epoch
+(``fused_trace_launches``; the conv's forward and grad-input are one kernel
+symbol and are counted together).
 """
 
 from __future__ import annotations
@@ -89,6 +115,29 @@ E2E_FRAC = 0.05
 # GPU (bf16 + kernels) vs CPU (float32) train step at B=1: loss within 2 %,
 # global gradient norm within 5 %, cosine of the flattened gradients >= 0.99
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COS = 0.02, 0.05, 0.99
+
+# Losses of two training runs of the same seed and order (host loader, device
+# cache, fused epochs).  The runs are not bit-equal: the trilinear upsample's
+# backward adds with atomics, in an order that changes from run to run, and
+# Adam turns a last-bit difference into a full lr step of some elements; on
+# the steep first steps of the one-cycle ramp this grows (measured: single
+# steps 6-28 % apart around steps 9-11, then together again).  Held: the
+# first step (same weights, same batch) to 1e-3 relative; the next two, which
+# see the first updates (lr, weight decay, the next batches) before the
+# noise has grown, to 2 % (twelve runs on an H100 spread 0.37 % at step 1
+# and 0.83 % at step 2); each epoch's mean loss (12 steps) to 3 % (the same
+# runs: at most 0.81 %).  The JSON log's own interval records are not
+# compared: the per-step loop averages the last 20 steps at an epoch's end,
+# reaching into the epoch before, a fused epoch its own 12.
+RUN_FIRST_LOSS_RTOL, RUN_EARLY_LOSS_RTOL, RUN_EPOCH_MEAN_RTOL = 1e-3, 0.02, 0.03
+# Final parameters of two such runs: the distance between them, relative to
+# the distance the reference run moved from the seeded weights.  Two
+# per-step runs (host loader, device cache) measured 0.38-0.45 apart; a run
+# that never updated reads 1.0, two unrelated directions ~1.4.  Held: every
+# pair to 0.6, and the fused run to the noise of this very run: at most
+# 1.5 times the host-vs-cache distance printed before it
+RUN_PARAM_REL_DIST, RUN_PARAM_NOISE_FACTOR = 0.6, 1.5
+STREAM_GB = 0.3    # --stream_cache_gb: chunks of 24 frames, four on the 96-frame root
 
 FRAMES = 300    # test frames of the synthetic root (2 sequences x 150)
 TRAIN_FRAMES = 96   # train frames of the training root (2 sequences x 48)
@@ -225,13 +274,22 @@ def phase_preprocess(dev):
     print(f"[preprocess] B1 f16: {ms:.4f} ms (wrapper {wrap_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound:.4f} ms); B8 f16: {ms8:.4f} ms "
           f"(bound {8 * bound:.4f} ms)")
-    return dict(name="preprocess", route="cuda",
-                source="rtpose_tpu_torch/csrc/preprocess.cu",
-                replaces="rtpose_tpu/ops/preprocess.py:173",
-                max_abs_err=max([err, err1, *errs.values()]), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                library_ms=None, wrapper_ms=wrap_ms, b8_ms=ms8, crop_ms=crop_ms,
-                shape="(1, 32, 16, 64, 160) f16 -> f32")
+    k1 = dict(name="preprocess", route="cuda",
+              source="rtpose_tpu_torch/csrc/preprocess.cu",
+              replaces="rtpose_tpu/ops/preprocess.py:173",
+              max_abs_err=max([err1, *errs.values()]), ms=ms,
+              plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+              library_ms=None, wrapper_ms=wrap_ms, b8_ms=ms8,
+              shape="(1, 32, 16, 64, 160) f16 -> f32")
+    # K2, the single-cube form: the B = 1 launch of the same kernel through
+    # ``fused_preprocess``; no path of the port (or of the JAX package) calls it
+    k2 = dict(name="preprocess_single", route="cuda",
+              source="rtpose_tpu_torch/csrc/preprocess.cu",
+              replaces="rtpose_tpu/ops/preprocess.py:95", max_abs_err=err, ms=crop_ms,
+              plain_ms=crop_plain_ms, bound_ms=got.numel() * 6 / PEAK_BYTES * 1e3,
+              bound_by="bytes", library_ms=None, on_main_path=False,
+              shape="(32, 32, 128, 256) f16, ROI crop -> (16, 64, 160, 32) f32")
+    return k1, k2
 
 
 # the shapes the main path gives K3: eval B=1 and training B=8, at full
@@ -615,47 +673,136 @@ def train_argv(cfg_path, work_dir, epochs):
             "--stop_epoch", str(epochs)]
 
 
-def phase_train(tmp, cfg_path):
-    """The port's train CLI on the flagship config: launch counts, finite
-    losses, no skipped step, ms/step."""
-    import statistics
+def run_train(tag, argv, epochs, counted_steps=None):
+    """One run of the port's train CLI, checked: ``epochs`` epochs of whole
+    batches, finite losses, no skipped step, and the wrappers' launch counts:
+    once (preprocess) or ``K3_PER_STEP`` times (conv forward, conv backward)
+    for each of the ``counted_steps`` steps that passed the wrappers (every
+    step of a per-step run, the default).  Returns the trainer, the launch counts and the run's record: its
+    per-step losses, their mean per epoch (``epoch_means``) and its final
+    parameters (flat, on the host)."""
+    import torch
 
     from rtpose_tpu_torch import ops
     from rtpose_tpu_torch.tools import train as port_train
 
-    work = os.path.join(tmp, "train_work")
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = port_train.main(train_argv(cfg_path, work, TRAIN_EPOCHS))
+    trainer = port_train.main(argv)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     steps = len(trainer.iter_seconds)
     hist = trainer.log_buffer.val_history
-    losses, skipped = hist["loss"], hist["skipped"]
-    print(f"[train] tools.train: {steps} steps in {wall:.1f} s wall, launch counts {counts}")
-    if steps != TRAIN_EPOCHS * TRAIN_FRAMES // 8:
-        fail(f"{steps} train steps, expected {TRAIN_EPOCHS * TRAIN_FRAMES // 8}")
+    losses, skipped = list(hist["loss"]), hist["skipped"]
+    print(f"[{tag}] tools.train: {steps} steps in {wall:.1f} s wall, launch counts {counts}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if steps != epochs * TRAIN_FRAMES // 8:
+        fail(f"{tag}: {steps} train steps, expected {epochs * TRAIN_FRAMES // 8}")
     if len(losses) != steps or not all(v == v and abs(v) < float("inf") for v in losses):
-        fail(f"train losses not all finite: {losses}")
+        fail(f"{tag}: train losses not all finite: {losses}")
     if any(v != 0.0 for v in skipped):
-        fail(f"{int(sum(skipped))} train steps skipped")
-    want = {"preprocess": steps, "conv3d_k3": K3_PER_STEP * steps,
-            "conv3d_k3_bwd": K3_PER_STEP * steps}
+        fail(f"{tag}: {int(sum(skipped))} train steps skipped")
+    counted = steps if counted_steps is None else counted_steps
+    want = {"preprocess": counted, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * counted,
+            "conv3d_k3_bwd": K3_PER_STEP * counted}
     if counts != want:
-        fail(f"training launch counts {counts}, expected {want}")
+        fail(f"{tag}: training launch counts {counts}, expected {want}")
+    print(f"[{tag}] losses {[round(v, 4) for v in losses]}")
+    per_epoch = TRAIN_FRAMES // 8
+    epoch_means = [sum(losses[e * per_epoch:(e + 1) * per_epoch]) / per_epoch
+                   for e in range(epochs)]
+    with open(trainer.json_log) as f:
+        records = [json.loads(line) for line in f]
+    if [r["epoch"] for r in records] != list(range(1, epochs + 1)):
+        fail(f"{tag}: the JSON log does not hold one record per epoch: {records}")
+    params = torch.cat([q.detach().reshape(-1).float().cpu()
+                        for q in trainer.state.model.parameters()])
+    return trainer, counts, dict(wall_s=wall, losses=losses, epoch_means=epoch_means,
+                                 params=params,
+                                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def step_times(tag, trainer):
+    """ms/step of a per-step run: the host clock of each loop iteration
+    after two warm-up steps."""
+    import statistics
+
+    ms = [t * 1e3 for t in trainer.iter_seconds[2:]]
+    med = statistics.median(ms)
+    print(f"[{tag}] ms/step after warm-up (host clock per iteration, B=8): median {med}, "
+          f"spread {max(ms) - min(ms)}, min {min(ms)}, max {max(ms)}; {8e3 / med} frames/s")
+    return dict(ms_per_step=ms, ms_per_step_median=med, ms_per_step_spread=max(ms) - min(ms),
+                frames_per_s=8e3 / med, first_step_ms=trainer.iter_seconds[0] * 1e3)
+
+
+def compare_runs(tag, run, ref, p0, noise_dist=None, control=False):
+    """Two training runs of the same seed and order, held to the tolerances
+    stated at ``RUN_FIRST_LOSS_RTOL`` and ``RUN_PARAM_REL_DIST``
+    (``noise_dist``: the distance two per-step runs of the same call of
+    this script were apart).  Returns how far apart they were: the losses' relative
+    differences and the distance between their final parameters relative to
+    the distance ``ref`` moved from ``p0``.  ``control``: ``run`` was made
+    wrong on purpose, and it is a failure if every tolerance holds."""
+    if len(run["epoch_means"]) != len(ref["epoch_means"]):
+        fail(f"{tag}: {len(run['epoch_means'])} epochs vs {len(ref['epoch_means'])}")
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["epoch_means"], ref["epoch_means"])]
+    dist = float((run["params"] - ref["params"]).norm() / (ref["params"] - p0).norm())
+    limit = RUN_PARAM_REL_DIST
+    if noise_dist is not None:
+        limit = min(limit, RUN_PARAM_NOISE_FACTOR * noise_dist)
+    broken = []
+    if step_rel[0] > RUN_FIRST_LOSS_RTOL:
+        broken.append(f"first-step loss {run['losses'][0]} vs {ref['losses'][0]}")
+    if max(step_rel[1:3]) > RUN_EARLY_LOSS_RTOL:
+        broken.append(f"losses of steps 1-2 {run['losses'][1:3]} vs {ref['losses'][1:3]}")
+    if max(rel) > RUN_EPOCH_MEAN_RTOL:
+        broken.append(f"per-epoch losses {run['epoch_means']} vs {ref['epoch_means']}")
+    if dist > limit:
+        broken.append(f"final parameters apart by {dist:.3f} of the distance moved, "
+                      f"limit {limit:.3f}")
+    print(f"[{tag}] per-epoch losses {run['epoch_means']} vs {ref['epoch_means']} (rel {rel}); "
+          f"first step rel {step_rel[0]:.2e}, steps 1-2 rel {step_rel[1:3]}, largest "
+          f"single-step rel {max(step_rel):.3f} at step {step_rel.index(max(step_rel))}; final "
+          f"parameters apart by {dist:.3f} of the distance moved (limit {limit:.3f})")
+    if control:
+        if not broken:
+            fail(f"{tag}: a run made wrong on purpose stayed within every tolerance")
+        print(f"[{tag}] out of tolerance, as it must be: {'; '.join(broken)}")
+    elif broken:
+        fail(f"{tag}: {'; '.join(broken)}")
+    return dict(epoch_mean_rel=rel, first_step_rel=step_rel[0], early_step_rel=step_rel[1:3],
+                max_step_rel=max(step_rel), param_rel_dist=dist, param_rel_dist_limit=limit)
+
+
+def seeded_params(cfg_path):
+    """The flat initial parameters of a ``--seed 0`` run."""
+    import torch
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.models import init_weights
+
+    model = init_weights(assemble(Config.fromfile(cfg_path)).model,
+                         torch.Generator().manual_seed(0))
+    return torch.cat([q.detach().reshape(-1).float() for q in model.parameters()])
+
+
+def phase_train(tmp, cfg_path):
+    """The port's train CLI on the flagship config with the host loader:
+    launch counts, finite losses, no skipped step, ms/step."""
+    work = os.path.join(tmp, "train_work")
+    trainer, counts, run = run_train("train", train_argv(cfg_path, work, TRAIN_EPOCHS),
+                                     TRAIN_EPOCHS)
     ckpt = os.path.join(work, "checkpoints", f"epoch_{TRAIN_EPOCHS}.pth")
     if not os.path.isfile(ckpt):
         fail(f"no checkpoint {ckpt}")
-    ms = [t * 1e3 for t in trainer.iter_seconds[2:]]      # after two warm-up steps
-    med = statistics.median(ms)
-    print(f"[train] losses {[round(v, 4) for v in losses]}")
-    print(f"[train] ms/step after warm-up (host clock per iteration, B=8): median {med}, "
-          f"spread {max(ms) - min(ms)}, min {min(ms)}, max {max(ms)}; "
-          f"{8e3 / med} frames/s")
-    return dict(steps=steps, batch=8, wall_s=wall, ms_per_step=ms, ms_per_step_median=med,
-                ms_per_step_spread=max(ms) - min(ms), frames_per_s=8e3 / med,
-                first_step_ms=trainer.iter_seconds[0] * 1e3, losses=losses,
-                grad_norm_last=hist["grad_norm"][-1], launches=counts, checkpoint=ckpt)
+    info = dict(steps=len(run["losses"]), batch=8, wall_s=run["wall_s"],
+                **step_times("train", trainer), losses=run["losses"],
+                grad_norm_last=trainer.log_buffer.val_history["grad_norm"][-1],
+                launches=counts, peak_device_memory_gb=run["peak_gb"], checkpoint=ckpt)
+    return info, run
 
 
 def phase_train_trace(tmp, cfg_path, median_ms):
@@ -764,6 +911,214 @@ def phase_train_compare(cfg_path, dev):
     return dict(loss_rel_err=rel_loss, grad_norm_rel_err=rel_norm, grad_cosine=cos)
 
 
+def phase_cache_content(cfg_path, dev):
+    """``DeviceCachedLoader`` on the card against ``BatchLoader`` over one
+    epoch of the training root: the same indices and bit-equal tensors with no
+    ``cache_dtype``; compressed caches equal to ``cache_cast`` of the same
+    rows cast back, labels untouched.  The raw f16 cubes (what the cache
+    holds under --device_preprocess) shrink under float8_e4m3fn only; the
+    bf16 cache is held on the float32 host-preprocessed cubes."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch.api import build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import BatchLoader, DeviceCachedLoader
+    from rtpose_tpu_torch.data.loader import cache_cast
+
+    cfg = Config.fromfile(cfg_path)
+
+    def check(ds, key, cache_dtype, batches):
+        t0 = time.perf_counter()
+        cached = DeviceCachedLoader(ds, batch_size=8, device=dev, shuffle=True, seed=0,
+                                    cache_dtype=cache_dtype)
+        built = time.perf_counter() - t0
+        host = BatchLoader(ds, batch_size=8, shuffle=True, seed=0)
+        if len(cached) != len(host):
+            fail(f"cache {cache_dtype}: {len(cached)} batches, BatchLoader {len(host)}")
+        compressed = cached.data[key].dtype != torch.from_numpy(np.asarray(ds[0][key])).dtype
+        n = 0
+        for h, d in zip(host, cached):
+            if n == batches:
+                break
+            n += 1
+            # the same samples in the same order: the index streams agree
+            if d["meta"] != h["meta"] or int(d["valid"]) != int(h["valid"]):
+                fail(f"cache {cache_dtype}: meta or valid differ in batch {n}")
+            for k in (key, "poses", "num_poses"):
+                want = torch.from_numpy(h[k])
+                if k == key and compressed:
+                    want = cache_cast(want, cached.data[k].dtype).to(want.dtype)
+                got = d[k]
+                if got.device.type != "cuda" or got.dtype != want.dtype:
+                    fail(f"cache {cache_dtype}: {k} is {got.dtype} on {got.device}")
+                if not torch.equal(torch.nan_to_num(got.cpu().float(), nan=-1.0),
+                                   torch.nan_to_num(want.float(), nan=-1.0)):
+                    fail(f"cache {cache_dtype}: {k} differs in batch {n}")
+        print(f"[cache] {key} cache_dtype={cache_dtype}: stored {cached.data[key].dtype}, "
+              f"{cached.nbytes} bytes on the card, built in {built:.1f} s, {n} batches equal "
+              f"to BatchLoader's" + (" cast through the cache dtype" if compressed else ""))
+        return cached.nbytes, compressed
+
+    raw = build_dataset_from_cfg(cfg.data, "train", device_preprocess=True)
+    nbytes, _ = check(raw, "rdr_raw", None, 12)
+    _, c_bf16 = check(raw, "rdr_raw", "bfloat16", 2)
+    n_f8, c_f8 = check(raw, "rdr_raw", "float8_e4m3fn", 12)
+    if c_bf16 or not c_f8:
+        fail("cache: f16 cubes must stay as they are under bfloat16 and shrink under float8")
+    f32 = build_dataset_from_cfg(cfg.data, "train")
+    n_f32_bf16, c = check(f32, "rdr_tensor", "bfloat16", 2)
+    if not c:
+        fail("cache: float32 cubes must shrink under bfloat16")
+    return dict(bytes=nbytes, bytes_float8=n_f8, bytes_float32_cubes_as_bfloat16=n_f32_bf16)
+
+
+def phase_train_cached(tmp, cfg_path, host_run, p0):
+    """``--device_cache``, per step, against the host loader's run."""
+    argv = train_argv(cfg_path, os.path.join(tmp, "cache_work"), TRAIN_EPOCHS)
+    trainer, counts, run = run_train("device cache", argv + ["--device_cache"], TRAIN_EPOCHS)
+    if not trainer.loader.device_resident or trainer.epoch_step is not None:
+        fail("device cache: the run did not take the per-step loop over the cached loader")
+    info = dict(**step_times("device cache", trainer), launches=counts,
+                peak_device_memory_gb=run["peak_gb"],
+                **compare_runs("device cache vs host loader", run, host_run, p0))
+    return info, run
+
+
+def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
+    """``--device_cache --fuse_epochs``: the graph path taken, the run against
+    the per-step device-cache run, ms/step; then one more fused epoch, called
+    as the trainer calls it, under torch.profiler: the kernels its replays
+    launched, counted by name in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.config import Config
+
+    argv = train_argv(cfg_path, os.path.join(tmp, "fused_work"), TRAIN_EPOCHS)
+    # the wrappers are passed by the warm-up step and by the capture: two steps' counts
+    trainer, counts, run = run_train("fused", argv + ["--device_cache", "--fuse_epochs"],
+                                     TRAIN_EPOCHS, counted_steps=2)
+    es = trainer.epoch_step
+    steps, per_epoch = len(run["losses"]), TRAIN_FRAMES // 8
+    if es is None or es.graph is None:
+        fail("fused: no CUDA graph was captured")
+    if es.replays != steps:
+        fail(f"fused: {es.replays} graph replays for {steps} steps")
+    captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
+                "conv3d_k3_bwd": K3_PER_STEP}
+    if es.launches_per_step != captured:
+        fail(f"fused: the wrappers counted {es.launches_per_step} during the capture, "
+             f"expected {captured}")
+    by_epoch = [trainer.iter_seconds[e * per_epoch] * 1e3 for e in range(TRAIN_EPOCHS)]
+    steady = by_epoch[-1]
+    print(f"[fused] {es.replays} replays of one captured step (the wrappers counted "
+          f"{es.launches_per_step} while it was captured); ms/step by epoch (epoch time over "
+          f"its {per_epoch} steps; the first holds the warm-up step and the capture): "
+          f"{by_epoch}; {8e3 / steady} frames/s")
+    cmp = compare_runs("fused vs device cache per step", run, cached_run, p0, noise_dist)
+    # one more epoch, replays only, traced
+    loader = trainer.loader
+    loader.set_epoch(TRAIN_EPOCHS)
+    idx = loader.fused_epoch()[0]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = es(trainer.state, loader.data, idx)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / per_epoch
+    if es.replays != steps + per_epoch:
+        fail(f"fused: the traced epoch made {es.replays - steps} replays")
+    if any(ops.launch_counts().values()):
+        fail(f"fused: replays passed the wrappers: {ops.launch_counts()}")
+    if not torch.isfinite(metrics["loss"]).all() or float(metrics["skipped"].sum()) != 0.0:
+        fail(f"fused: the traced epoch's losses {metrics['loss'].tolist()}")
+    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_ops:
+        fail("the fused trace holds no device operation")
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3 / per_epoch
+    n_ops = sum(e.count for e in dev_ops) / per_epoch
+    k3 = [e for e in dev_ops if "conv3d_k3_kernel" in e.key]
+    traced = {"preprocess_kernel": sum(e.count for e in dev_ops if "preprocess_kernel" in e.key),
+              "conv3d_k3_kernel": sum(e.count for e in k3)}
+    want = {"preprocess_kernel": per_epoch, "conv3d_k3_kernel": 2 * K3_PER_STEP * per_epoch}
+    if traced != want:
+        fail(f"fused trace: kernels launched by {per_epoch} replays {traced}, expected {want}")
+    print(f"[fused trace] one epoch of {per_epoch} replays: kernels by name {traced} (the "
+          f"wrappers counted {ops.launch_counts()}); device busy {busy} ms/step, {n_ops} "
+          f"device operations/step, idle share {1 - busy / steady} of the untraced {steady} "
+          f"ms/step (the traced epoch itself: {traced_ms} ms/step); K3 "
+          f"{sum(e.self_device_time_total for e in k3) / 1e3 / per_epoch} ms/step")
+    for e in sorted(dev_ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        print(f"[fused trace] {e.key[:80]:<80} "
+              f"{e.self_device_time_total / 1e3 / per_epoch:9.4f} {e.count / per_epoch:10.2f}")
+    # the comparison's own control: a fused run whose peak lr is 1.2 times the
+    # config's must not pass for the per-step run
+    lr_max = float(Config.fromfile(cfg_path).lr_config["lr_max"])
+    wrong_argv = train_argv(cfg_path, os.path.join(tmp, "fused_wrong_lr_work"), TRAIN_EPOCHS)
+    _, _, wrong = run_train("fused, lr_max x 1.2", wrong_argv + [
+        "--device_cache", "--fuse_epochs", "--lr_max", str(1.2 * lr_max)],
+        TRAIN_EPOCHS, counted_steps=2)
+    control = compare_runs("control: fused with lr_max x 1.2 vs device cache per step", wrong,
+                           cached_run, p0, noise_dist, control=True)
+    return dict(replays=steps, ms_per_step_by_epoch=by_epoch, ms_per_step=steady,
+                control_lr_max_x1_2=control,
+                frames_per_s=8e3 / steady, wrapper_launches=counts,
+                wrapper_launches_in_capture=es.launches_per_step,
+                traced_epoch_replays=per_epoch, trace_launches=traced,
+                peak_device_memory_gb=run["peak_gb"],
+                device_busy_ms_per_step=busy, device_ops_per_step=n_ops,
+                device_idle_share=1 - busy / steady, traced_epoch_ms_per_step=traced_ms,
+                k3_ms_per_step=sum(e.self_device_time_total for e in k3) / 1e3 / per_epoch,
+                **cmp)
+
+
+def phase_train_stream(tmp, cfg_path):
+    """``--stream_cache_gb``: one epoch over at least three chunks, every
+    sample once, at most two chunks on the card."""
+    argv = train_argv(cfg_path, os.path.join(tmp, "stream_work"), 1)
+    trainer, counts, run = run_train("stream", argv + ["--stream_cache_gb", str(STREAM_GB)], 1)
+    loader = trainer.loader
+    if len(loader.chunks) < 3:
+        fail(f"stream: {len(loader.chunks)} chunks")
+    if sorted(int(i) for c in loader.chunks for i in c) != list(range(TRAIN_FRAMES)):
+        fail("stream: the chunks do not hold every sample once")
+    if not 1 <= loader.max_resident <= 2:
+        fail(f"stream: {loader.max_resident} chunks were resident at once")
+    loader.set_epoch(1)
+    seen = [f"{m['seq']}/{m['frame']}" for b in loader for m in b["meta"]]
+    if len(seen) != TRAIN_FRAMES or len(set(seen)) != TRAIN_FRAMES or loader.max_resident > 2:
+        fail(f"stream: an epoch yielded {len(seen)} samples, {len(set(seen))} distinct, "
+             f"{loader.max_resident} chunks resident")
+    print(f"[stream] {len(loader.chunks)} chunks of {loader.samples_per_chunk} samples "
+          f"({loader.chunk_nbytes} bytes each), at most {loader.max_resident} resident; every "
+          f"sample once per epoch")
+    return dict(**step_times("stream", trainer), chunks=len(loader.chunks),
+                samples_per_chunk=loader.samples_per_chunk, chunk_bytes=loader.chunk_nbytes,
+                max_resident_chunks=loader.max_resident, launches=counts,
+                peak_device_memory_gb=run["peak_gb"])
+
+
+def phase_train_profile(tmp, cfg_path):
+    """``--profile 5``: the Chrome trace exists and holds the CUDA kernels of
+    five steps."""
+    work = os.path.join(tmp, "profile_work")
+    run_train("profile", train_argv(cfg_path, work, 1) + ["--device_cache", "--profile", "5"], 1)
+    path = os.path.join(work, "profile", "trace.json")
+    if not os.path.isfile(path):
+        fail(f"no trace {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k3 = [e for e in kernels if "conv3d_k3_kernel" in e.get("name", "")]
+    print(f"[profile] {path}: {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"{len(kernels)} CUDA kernels, {len(k3)} of them K3")
+    if len(k3) != 5 * 2 * K3_PER_STEP:
+        fail(f"--profile 5: {len(k3)} K3 kernels in the trace, expected {5 * 2 * K3_PER_STEP}")
+    return dict(trace_bytes=os.path.getsize(path), cuda_kernels=len(kernels), k3_kernels=len(k3))
+
+
 def main() -> int:
     try:
         import torch
@@ -787,7 +1142,7 @@ def main() -> int:
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev)]
+    kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
@@ -795,17 +1150,34 @@ def main() -> int:
         e2e = phase_speed_and_trace(tmp, cfg_path, ckpt, out["sec_per_frame"] * 1e3)
         phase_cpu_compare(cfg, ckpt, out["detections"], dev)
         train_cfg = write_train_inputs(tmp)
-        train = phase_train(tmp, train_cfg)
+        train, host_run = phase_train(tmp, train_cfg)
         train.update(phase_train_trace(tmp, train_cfg, train["ms_per_step_median"]))
         train["trained_mpjpe_mm"] = phase_train_eval(tmp, train_cfg, train.pop("checkpoint"))
         train.update(phase_train_compare(train_cfg, dev))
-    tc = train["launches"]
-    kernels[0]["launches"] = counts["preprocess"]
-    kernels[1]["launches"] = counts["conv3d_k3"]
-    kernels[2]["launches"] = tc["conv3d_k3_bwd"]
-    for k, name in zip(kernels, ("preprocess", "conv3d_k3", "conv3d_k3_bwd")):
+        train["cache"] = phase_cache_content(train_cfg, dev)
+        p0 = seeded_params(train_cfg)
+        train["device_cache"], cached_run = phase_train_cached(tmp, train_cfg, host_run, p0)
+        train["fused"] = phase_train_fused(tmp, train_cfg, cached_run, p0,
+                                           train["device_cache"]["param_rel_dist"])
+        train["stream"] = phase_train_stream(tmp, train_cfg)
+        train["profile"] = phase_train_profile(tmp, train_cfg)
+    tc, ft = train["launches"], train["fused"]["trace_launches"]
+    k1, k2, k3, k3_bwd = kernels
+    k1["launches"] = counts["preprocess"]
+    # on no path: its wrapper's count over the eval run and every training run
+    k2["launches"] = counts["preprocess_single"] + sum(
+        r["preprocess_single"] for r in (tc, train["device_cache"]["launches"],
+                                         train["fused"]["wrapper_launches"],
+                                         train["stream"]["launches"]))
+    k3["launches"] = counts["conv3d_k3"]
+    k3_bwd["launches"] = tc["conv3d_k3_bwd"]
+    for k, name in ((k1, "preprocess"), (k3, "conv3d_k3"), (k3_bwd, "conv3d_k3_bwd")):
         k["kernel_ms"] = k["ms"]
         k["train_launches"] = tc[name]
+    # the replays of the traced fused epoch, by kernel symbol in the trace
+    k1["fused_trace_launches"] = ft["preprocess_kernel"]
+    k3["fused_trace_launches_with_bwd"] = ft["conv3d_k3_kernel"]
+    k3_bwd["fused_trace_launches_with_fwd"] = ft["conv3d_k3_kernel"]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))

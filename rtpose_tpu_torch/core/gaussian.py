@@ -1,6 +1,6 @@
 """Gaussian heatmap target math.
 
-Counterpart of ``rtpose_tpu/core/gaussian.py:30-56, 114-148`` (reference
+Counterpart of ``rtpose_tpu/core/gaussian.py:30-56, 67-102, 114-148`` (reference
 ``det3d/core/utils/center_utils.py:17-99``): a truncated isotropic gaussian
 centered at an integer voxel, window half-width ``radius``,
 ``sigma = (2 * radius + 1) / 6`` and the reference's 3-D normalization
@@ -8,6 +8,9 @@ centered at an integer voxel, window half-width ``radius``,
 
 * ``gaussian_radius`` — the closed-form minimal radius for a box (host,
   numpy).
+* ``gaussian3d`` / ``draw_gaussian3d`` — the host form (numpy): one object's
+  window splatted into the heatmap in place, as the host target assigner
+  draws it.
 * ``dense_pose_heatmap`` — the on-device form, batched: each object's
   truncated gaussian is evaluated densely over the fixed grid and
   max-reduced into the heatmap, one object at a time (so the working set
@@ -42,6 +45,37 @@ def gaussian_radius(det_size, min_overlap: float = 0.5) -> float:
     c3 = (min_overlap - 1) * width * height
     r3 = (b3 + np.sqrt(b3 ** 2 - 4 * a3 * c3)) / 2
     return min(r1, r2, r3)
+
+
+def gaussian3d(shape, sigma: float = 1.0, modulation_coef: float = 1.0) -> np.ndarray:
+    """(d, h, w) gaussian window with the reference's ``(2 sigma^2)^(3/2)``
+    denominator (center_utils.py:67-72)."""
+    m, n, p = [(ss - 1.0) / 2.0 for ss in shape]
+    z, y, x = np.ogrid[-m: m + 1, -n: n + 1, -p: p + 1]
+    h = np.exp(-(x * x + y * y + z * z) / (2 * sigma * sigma) ** 1.5) * modulation_coef
+    h[h < np.finfo(h.dtype).eps * h.max()] = 0
+    return h
+
+
+def draw_gaussian3d(heatmap: np.ndarray, center, radius: int, k: float = 1.0,
+                    modulation_coef: float = 1.0) -> np.ndarray:
+    """Splat a truncated 3-D gaussian into ``heatmap`` (Z, Y, X) in place.
+    ``center`` is (x, y, z) integer voxel coordinates (center_utils.py:74-91);
+    the window is clipped at the volume's boundary and merged by max."""
+    diameter = 2 * radius + 1
+    gaussian = gaussian3d((diameter,) * 3, sigma=diameter / 6.0,
+                          modulation_coef=modulation_coef)
+    x, y, z = int(center[0]), int(center[1]), int(center[2])
+    nz, ny, nx = heatmap.shape[:3]
+    x_lo, x_hi = min(x, radius), min(nx - x, radius + 1)
+    y_lo, y_hi = min(y, radius), min(ny - y, radius + 1)
+    z_lo, z_hi = min(z, radius), min(nz - z, radius + 1)
+    masked_hm = heatmap[z - z_lo: z + z_hi, y - y_lo: y + y_hi, x - x_lo: x + x_hi]
+    masked_g = gaussian[radius - z_lo: radius + z_hi, radius - y_lo: radius + y_hi,
+                        radius - x_lo: radius + x_hi]
+    if min(masked_g.shape) > 0 and min(masked_hm.shape) > 0:
+        np.maximum(masked_hm, masked_g * k, out=masked_hm)
+    return heatmap
 
 
 def dense_pose_heatmap(centers_zyx: torch.Tensor, valid: torch.Tensor,

@@ -1,8 +1,11 @@
-"""CenterNet-style 3-D pose target assignment, on the device.
+"""CenterNet-style 3-D pose target assignment.
 
-Counterpart of ``rtpose_tpu/core/targets.py:45-65, 137-206`` (the
-reference assigners ``det3d/datasets/pipelines/pose.py:145-541``), batched
-over B with no vmap:
+Counterpart of ``rtpose_tpu/core/targets.py`` (the reference assigners
+``det3d/datasets/pipelines/pose.py:145-541``).  ``assign_pose_targets``
+runs on the device, batched over B with no vmap;
+``assign_pose_targets_np`` is the host form for one sample (numpy, the
+gaussians splatted in place), behind batches that carry precomputed
+targets (``BatchLoader.LIST_KEYS``).  Both modes:
 
 * ``mode='one_hm'`` (the flagship): one "Pelvis" heatmap; each pose gives a
   gaussian peak at its pelvis voxel and a 45-dim target, all 15 keypoints'
@@ -15,8 +18,7 @@ Conventions (the JAX package's): world -> voxel is
 and ``out_size_factor`` indexed (z, y, x); the heatmap is (Z, Y, X); the
 flat index is ``z * (Y * X) + y * X + x``; integer voxels truncate toward
 zero; an object whose integer voxel falls outside the grid is dropped
-(``ind``/``anno_pose`` zero, ``mask`` 0).  The host numpy assigner
-(``assign_pose_targets_np``) is not ported.
+(``ind``/``anno_pose`` zero, ``mask`` 0).
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
-from .gaussian import dense_pose_heatmap
+from .gaussian import dense_pose_heatmap, draw_gaussian3d
 
 NUM_JOINTS = 15
 
@@ -58,10 +61,72 @@ def world_to_voxel(xyz: torch.Tensor, spec: PoseTargetSpec) -> torch.Tensor:
     xmin, ymin, zmin = spec.pc_range_min_xyz
     sx, sy, sz = spec.voxel_size_xyz
     fz, fy, fx = spec.out_size_factor_zyx
-    scale = torch.tensor([1.0 / (sx * fx), 1.0 / (sy * fy), 1.0 / (sz * fz)],
-                         dtype=torch.float32, device=xyz.device)
-    offset = torch.tensor([xmin, ymin, zmin], dtype=torch.float32, device=xyz.device)
-    return (xyz.to(torch.float32) - offset) * scale
+    # scalars, not tensors built from them: a train step copies nothing from
+    # the host (a CUDA graph capture would refuse the copy)
+    xyz = xyz.to(torch.float32)
+    return torch.stack([(xyz[..., 0] - xmin) * (1.0 / (sx * fx)),
+                        (xyz[..., 1] - ymin) * (1.0 / (sy * fy)),
+                        (xyz[..., 2] - zmin) * (1.0 / (sz * fz))], dim=-1)
+
+
+def _world_to_voxel_np(xyz: np.ndarray, spec: PoseTargetSpec) -> np.ndarray:
+    """(..., 3) world xyz -> continuous voxel coords (cx, cy, cz), float32."""
+    xmin, ymin, zmin = spec.pc_range_min_xyz
+    sx, sy, sz = spec.voxel_size_xyz
+    fz, fy, fx = spec.out_size_factor_zyx
+    out = np.empty_like(xyz, dtype=np.float32)
+    out[..., 0] = (xyz[..., 0] - xmin) / sx / fx
+    out[..., 1] = (xyz[..., 1] - ymin) / sy / fy
+    out[..., 2] = (xyz[..., 2] - zmin) / sz / fz
+    return out
+
+
+def assign_pose_targets_np(poses: np.ndarray, num_poses: int,
+                           spec: PoseTargetSpec) -> Dict[str, np.ndarray]:
+    """Host (numpy) target assignment for one sample.
+
+    Args:
+      poses: (max_poses, 15, 3) float world keypoints (padded).
+      num_poses: number of valid poses in ``poses``.
+
+    Returns dict of numpy arrays:
+      hm:        (num_classes, Z, Y, X) float32
+      anno_pose: (max_objects, reg_dim) float32
+      ind:       (max_objects,) int64
+      mask:      (max_objects,) uint8
+      cat:       (max_objects,) int64
+    """
+    nz, ny, nx = spec.grid_zyx
+    n_obj = spec.max_objects
+    hm = np.zeros((spec.num_classes, nz, ny, nx), dtype=np.float32)
+    anno_pose = np.zeros((n_obj, spec.reg_dim), dtype=np.float32)
+    ind = np.zeros((n_obj,), dtype=np.int64)
+    mask = np.zeros((n_obj,), dtype=np.uint8)
+    cat = np.zeros((n_obj,), dtype=np.int64)
+
+    def place(slot, ct_int, radius, cls, anno):
+        x, y, z = int(ct_int[0]), int(ct_int[1]), int(ct_int[2])
+        if not (0 <= x < nx and 0 <= y < ny and 0 <= z < nz):
+            return
+        draw_gaussian3d(hm[cls], ct_int, radius)
+        cat[slot] = cls
+        ind[slot] = z * ny * nx + y * nx + x
+        mask[slot] = 1
+        anno_pose[slot] = anno
+
+    if spec.mode == "one_hm":
+        for k in range(min(num_poses, n_obj)):
+            ct = _world_to_voxel_np(poses[k], spec)          # (15, 3) voxel coords
+            ct_int = ct[0].astype(np.int32)                   # pelvis voxel
+            place(k, ct_int, spec.min_radius, 0,
+                  (ct - ct_int[None].astype(np.float32)).reshape(-1))
+    else:   # per_joint: (pose, joint) flattened into object slots
+        for slot in range(min(num_poses * NUM_JOINTS, n_obj)):
+            p, j = divmod(slot, NUM_JOINTS)
+            ct = _world_to_voxel_np(poses[p, j], spec)        # (3,)
+            ct_int = ct.astype(np.int32)
+            place(slot, ct_int, max(spec.min_radius, 1), j, ct - ct_int.astype(np.float32))
+    return dict(hm=hm, anno_pose=anno_pose, ind=ind, mask=mask, cat=cat)
 
 
 def _in_grid(ct_int: torch.Tensor, spec: PoseTargetSpec) -> torch.Tensor:

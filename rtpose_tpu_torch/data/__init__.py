@@ -1,6 +1,7 @@
 from .cruw_pose import CRUWPoseDataset, CubeGeometry
-from .loader import BatchLoader, shard_indices
+from .loader import (BatchLoader, DeviceCachedLoader, StreamingDeviceLoader,
+                     shard_indices)
 from .synthetic import generate_synthetic_dataset
 
-__all__ = ["CRUWPoseDataset", "CubeGeometry", "BatchLoader", "shard_indices",
-           "generate_synthetic_dataset"]
+__all__ = ["CRUWPoseDataset", "CubeGeometry", "BatchLoader", "DeviceCachedLoader",
+           "StreamingDeviceLoader", "shard_indices", "generate_synthetic_dataset"]

@@ -1,6 +1,6 @@
-"""Train and eval steps.
+"""Train, fused-epoch and eval steps.
 
-Counterpart of ``rtpose_tpu/engine/steps.py:31-42, 48-194, 242-329``.
+Counterpart of ``rtpose_tpu/engine/steps.py:31-42, 48-329``.
 Batches are dicts of tensors on the model's device:
   rdr_tensor: (B, Z, Y, X, C) float32 normalized radar cube, or
   rdr_raw:    (B, D, Z', Y', X') ROI-cropped raw cube in its disk dtype;
@@ -13,19 +13,25 @@ The train step runs forward, loss, backward, the optimizer and the NaN/Inf
 guard without reading anything back to the host: the guard is a
 ``torch.where`` on the device (``AdamOneCycle.step(finite=...)``), so the
 host can queue the next step at once; the metrics come back as device
-tensors, which the trainer reads once per log interval.
+tensors, which the trainer reads once per log interval.  Everything a step
+changes (parameters, moments, both step counts) it changes in place, and it
+copies nothing from the host, so a step can be captured in a CUDA graph:
+``make_epoch_step`` runs a whole epoch over a device-cached dataset as
+replays of one captured step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
 
+from .. import ops
 from ..core.decode import decode_pose_sparse
 from ..core.targets import PoseTargetSpec, assign_pose_targets
+from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
 from ..ops.preprocess import fused_preprocess_batch
 
@@ -41,6 +47,11 @@ class TrainState:
     model: Any
     optimizer: Any
     step: torch.Tensor
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor a train step changes in place."""
+        return [*self.model.state_dict().values(), self.optimizer.mu, self.optimizer.nu,
+                self.optimizer.step_count, self.step]
 
 
 def create_train_state(model, optimizer) -> TrainState:
@@ -90,19 +101,19 @@ def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: str = "rdr_tensor
     dense loss.  ``remat``: the forward and loss run under
     ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
     activations instead of keeping them; the device preprocess of a raw
-    batch stays outside the recomputed region (it holds no parameter).
+    batch stays outside the recomputed region (it holds no parameter), and
+    no RNG state is saved for the recomputation (the model draws no random
+    numbers, and a graph capture refuses the read).
     ``loc_weight_fn``: ``step -> weight`` replacing ``head.weight`` in
     total = hm_loss + w(step) * loc_loss.
     """
-    code_w = torch.tensor(head.code_weights, dtype=torch.float32)
-
     def sparse_losses(x, example):
         ind, mask = example["ind"][0], example["mask"][0]
         hm_logits, reg_at_ind = model.forward_sparse_train(x, ind)
         hm_loss = fast_focal_loss_logits(hm_logits, example["hm"][0], ind, mask,
                                          example["cat"][0])
         rl = masked_l1(reg_at_ind.float(), mask, example["anno_pose"][0])
-        loc_loss = torch.sum(rl * code_w.to(rl.device))
+        loc_loss = torch.sum(rl * head.code_w)
         return {"loss": [hm_loss + head.weight * loc_loss], "hm_loss": [hm_loss],
                 "loc_loss": [loc_loss], "loc_loss_elem": [rl],
                 "num_positive": [mask.float().sum()]}
@@ -116,8 +127,8 @@ def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: str = "rdr_tensor
         example = targets_from_batch(batch, spec)
         x = model_input_of(batch, input_key, preprocess)
         if remat:
-            losses = torch.utils.checkpoint.checkpoint(compute_losses, x, example,
-                                                       use_reentrant=False)
+            losses = torch.utils.checkpoint.checkpoint(
+                compute_losses, x, example, use_reentrant=False, preserve_rng_state=False)
         else:
             losses = compute_losses(x, example)
         if loc_weight_fn is None:
@@ -168,10 +179,131 @@ def make_train_step(model, head, spec: PoseTargetSpec, optimizer,
             metrics["lr"] = lr_fn(state.step)
         if loc_weight_fn is not None:
             metrics["loc_weight"] = loc_weight_fn(state.step)
-        state.step = state.step + 1
+        state.step += 1
         return state, metrics
 
     return train_step
+
+
+class EpochStep:
+    """``epoch_fn(state, data, idx) -> (state, metrics)``: one epoch over a
+    device-cached dataset with nothing read back and, on the card, no Python
+    between the operations of a step.
+
+    ``data`` is the loader's dict of (N, K) cache rows, ``idx`` the epoch's
+    ``n_steps * batch_size`` sample indices (numpy); ``metrics`` maps each
+    of the train step's metrics to its values stacked (n_steps, ...),
+    float32, the scalar ones columns of one (n_steps, n_scalars) tensor
+    (``scalars``, in the order of ``scalar_keys``).
+
+    One step gathers its batch from ``data`` by row ``counter`` of the
+    index buffer (``gather_batch``), runs ``train_step`` and writes its
+    metrics to row ``counter`` of the stacked buffers, then advances
+    ``counter``; index buffer, counter and metric buffers are device
+    tensors that keep their place.  On a CUDA device the step is captured
+    once in a CUDA graph (after one eager warm-up step on a side stream,
+    which is undone: everything ``TrainState.tensors`` names is restored),
+    and an epoch is ``n_steps`` replays; ``replays`` counts them.  A capture
+    that fails raises.  A replay launches the hand kernels without passing
+    their wrappers, so ``ops.launch_counts`` sees the warm-up step and the
+    capture and no replay: ``launches_per_step`` holds what the wrappers
+    counted while the step was captured, and a replay's own launches show
+    only in a device trace.  On a CPU device the same step runs ``n_steps``
+    times in a loop.
+
+    The buffers are those of the first call: later calls must bring the same
+    state, the same ``data`` tensors and as many indices, and the returned
+    metrics are views of buffers that the next epoch overwrites.
+    """
+
+    def __init__(self, train_step: Callable, batch_size: int, shapes: Dict[str, tuple],
+                 orig_dtypes: Dict[str, torch.dtype]):
+        self.train_step = train_step
+        self.batch_size = batch_size
+        self.shapes = shapes
+        self.orig_dtypes = orig_dtypes
+        self.replays = 0
+        self.graph = None
+        self.launches_per_step: Dict[str, int] = {}
+        self.scalar_keys: List[str] = []
+        self.scalars = None                             # (n_steps, n_scalars)
+        self.stacked: Dict[str, torch.Tensor] = {}      # the other metrics, (n_steps, ...)
+        self._state = None
+
+    def _setup(self, state: TrainState, data: Dict[str, torch.Tensor], n_steps: int):
+        dev = state.step.device
+        self._state, self._data, self._n = state, dict(data), n_steps
+        self.idx = torch.zeros((n_steps, self.batch_size), dtype=torch.int64, device=dev)
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def _one_step(self):
+        row = self.counter.view(1)
+        sel = self.idx.index_select(0, row)[0]
+        batch = gather_batch(self._data, sel, self.batch_size, self.shapes, self.orig_dtypes)
+        _, metrics = self.train_step(self._state, batch)
+        if self.scalars is None:    # the first step ever run: outside any capture
+            self.scalar_keys = [k for k, v in metrics.items() if v.dim() == 0]
+            self.scalars = torch.zeros((self._n, len(self.scalar_keys)), dtype=torch.float32,
+                                       device=row.device)
+            self.stacked = {k: torch.zeros((self._n, *v.shape), dtype=torch.float32,
+                                           device=row.device)
+                            for k, v in metrics.items() if v.dim() > 0}
+        self.scalars.index_copy_(
+            0, row, torch.stack([metrics[k].float() for k in self.scalar_keys])[None])
+        for k, buf in self.stacked.items():
+            buf.index_copy_(0, row, metrics[k].float()[None])
+        self.counter += 1
+
+    def _capture(self):
+        """Warm up eagerly on a side stream, undo the warm-up step, capture
+        one step."""
+        state = self._state
+        saved = [t.clone() for t in state.tensors()]
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._one_step()
+        cur.wait_stream(side)
+        for t, s in zip(state.tensors(), saved):
+            t.copy_(s)
+        self.counter.zero_()
+        warm = ops.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._one_step()
+        self.launches_per_step = {k: v - warm[k] for k, v in ops.launch_counts().items()}
+
+    def __call__(self, state: TrainState, data: Dict[str, torch.Tensor], idx):
+        idx = torch.as_tensor(idx).to(torch.int64).reshape(-1, self.batch_size)
+        if self._state is None:
+            self._setup(state, data, idx.shape[0])
+        elif (state is not self._state or idx.shape[0] != self._n
+              or data.keys() != self._data.keys()
+              or any(data[k] is not v for k, v in self._data.items())):
+            raise ValueError("make_epoch_step: the state, the cache tensors and the number "
+                             "of steps must be those of the first epoch")
+        self.idx.copy_(idx)             # the epoch's one upload
+        self.counter.zero_()
+        if self.counter.device.type == "cuda":
+            if self.graph is None:
+                self._capture()
+            for _ in range(self._n):
+                self.graph.replay()
+            self.replays += self._n
+        else:
+            for _ in range(self._n):
+                self._one_step()
+        metrics = {k: self.scalars[:, j] for j, k in enumerate(self.scalar_keys)}
+        metrics.update(self.stacked)
+        return state, metrics
+
+
+def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tuple],
+                    orig_dtypes: Dict[str, torch.dtype]) -> EpochStep:
+    """A whole epoch of device-cached batches as one call (the JAX package's
+    ``lax.scan`` over ``train_step``): see ``EpochStep``."""
+    return EpochStep(train_step, batch_size, shapes, orig_dtypes)
 
 
 def make_eval_step(model, decode_spec, input_key: str = "rdr_tensor",

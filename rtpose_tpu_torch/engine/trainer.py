@@ -9,8 +9,13 @@ every ``log_interval`` iterations, checkpoints every
 timings.  Metric reads wait for the device, so the loop keeps the last
 interval's metric dicts unread and copies them to the host in ONE transfer
 at logging time.  A SIGTERM sets a flag; the loop then checkpoints at the
-next step boundary and raises ``Preempted`` (caught in ``run``).  The
-fused-epoch mode of the JAX trainer is not ported.
+next step boundary and raises ``Preempted`` (caught in ``run``).
+
+``fuse_epochs``: over a loader that keeps the whole dataset on the device
+(``supports_fused_epochs``) an epoch is one call of
+``steps.make_epoch_step`` — on the card, replays of one captured CUDA graph
+of the train step — with one metric read per epoch; iteration hooks do not
+fire, epoch hooks and interval logging do.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .checkpoint import load_training_checkpoint, save_training_checkpoint
 from .evaluator import device_prefetch
 from .hooks import CheckpointHook, Hook, LoggerHook, SamplerSeedHook
 from .log_buffer import LogBuffer
-from .steps import TrainState
+from .steps import TrainState, make_epoch_step
 
 
 def get_root_logger(log_level="INFO", work_dir: Optional[str] = None):
@@ -85,13 +90,16 @@ class Trainer:
                  lr_fn: Optional[Callable] = None, log_interval: int = 20,
                  checkpoint_interval: int = 5, meta: Optional[dict] = None,
                  enable_tensorboard: bool = True, logger=None,
-                 default_hooks: bool = True, stop_epoch: Optional[int] = None):
+                 default_hooks: bool = True, fuse_epochs: bool = False,
+                 stop_epoch: Optional[int] = None):
         self.work_dir = os.path.abspath(work_dir)
         os.makedirs(self.work_dir, exist_ok=True)
         self.logger = logger or get_root_logger(work_dir=self.work_dir)
         self.device = device
         self.train_step = train_step
         self.state = state
+        self.fuse_epochs = fuse_epochs
+        self._epoch_step = None     # make_epoch_step's, once a fused epoch has run
         # host-side mirror of state.step: logging must not wait on the device
         self._host_step = int(state.step)
         self.total_epochs = total_epochs
@@ -105,7 +113,8 @@ class Trainer:
         self.inner_iter = 0
         self.loader = None
         self.timings: Dict[str, float] = {}
-        # wall seconds of each iteration of this run (host clock)
+        # wall seconds of each iteration of this run (host clock); a fused
+        # epoch gives each of its steps the epoch's time over its steps
         self.iter_seconds: List[float] = []
         self.log_buffer = LogBuffer()
         self.tb = (TensorboardWriter(os.path.join(self.work_dir, "tf_logs"))
@@ -145,8 +154,7 @@ class Trainer:
         self.state.optimizer.load_state_dict(ckpt["optimizer"])
         meta = ckpt["meta"]
         self._host_step = int(meta["step"])
-        self.state.step = torch.tensor(self._host_step, dtype=torch.int64,
-                                       device=self.state.step.device)
+        self.state.step.fill_(self._host_step)
         self.epoch = int(meta.get("epoch", 0))
         self.logger.info(f"resumed from {path}: epoch {self.epoch}, step {self._host_step}")
 
@@ -207,13 +215,29 @@ class Trainer:
         self.save_checkpoint()
         raise Preempted()
 
+    @property
+    def epoch_step(self):
+        """``make_epoch_step``'s callable once a fused epoch has run, else
+        None (every epoch so far took the per-step loop)."""
+        return self._epoch_step
+
     def train_epoch(self, loader):
+        if self.fuse_epochs and getattr(loader, "supports_fused_epochs", False):
+            # supports_fused_epochs is the loaders' capability flag (the whole
+            # set must be on the device).  The fused epoch takes idx[:n * bs]
+            # as (n, bs) with no padding or 'valid': an unshuffled dataset
+            # that does not divide into batches takes the per-step loop
+            # (whether it does is the same in every epoch)
+            if loader.fused_epoch()[0] is not None:
+                return self.train_epoch_fused(loader)
         self.loader = loader
         self.call_hook("before_train_epoch")
         self._pending = []
         t_iter = time.perf_counter()
         self._epoch_t0 = t_iter
-        batches = device_prefetch(loader, self.device)
+        # a device-resident loader's batches are on the device already
+        batches = (iter(loader) if getattr(loader, "device_resident", False)
+                   else device_prefetch(loader, self.device))
         try:
             for i, batch in enumerate(batches):
                 self.inner_iter = i
@@ -237,6 +261,53 @@ class Trainer:
             batches.close()
         self.epoch += 1
         self.call_hook("after_train_epoch")
+
+    def train_epoch_fused(self, loader):
+        """One ``make_epoch_step`` call per epoch over a device-cached
+        dataset.  Iteration hooks cannot fire inside it; epoch hooks and
+        interval logging (from the stacked metrics, read once) are kept.
+        Preemption is honored at epoch ends."""
+        self.loader = loader
+        self.call_hook("before_train_epoch")
+        bs = loader.batch_size
+        idx, shapes, orig_dtypes = loader.fused_epoch()
+        n = len(idx) // bs
+        if self._epoch_step is None:
+            self._warn_iteration_hooks()
+            self._epoch_step = make_epoch_step(self.train_step, bs, shapes, orig_dtypes)
+        t0 = time.perf_counter()
+        self._epoch_t0 = t0
+        self.state, ms = self._epoch_step(self.state, loader.data, idx)
+        self._host_step += n
+        keys = [k for k, v in ms.items() if v.dim() == 1]
+        host = torch.stack([ms[k] for k in keys], dim=1).cpu().tolist()   # waits for the epoch
+        per_iter = (time.perf_counter() - t0) / max(n, 1)
+        self.iter_seconds += [per_iter] * n
+        for start in range(0, n, self.log_interval):
+            end = min(start + self.log_interval, n)
+            self.inner_iter = end - 1
+            for row in host[start:end]:
+                self.log_buffer.update(dict(zip(keys, row)))
+            self.log_buffer.update({"time": per_iter, "data_time": 0.0, "step_time": per_iter})
+            self.log_buffer.average(end - start)
+            self.emit_log(end, n)
+            self.log_buffer.clear_output()
+        self.epoch += 1
+        self.call_hook("after_train_epoch")
+        self._check_preempt()
+
+    def _warn_iteration_hooks(self):
+        """Say once which registered hooks a fused epoch leaves silent: those
+        that act on iteration events (interval logging aside, which the
+        fused epoch does itself from the stacked metrics)."""
+        silent = [type(h).__name__ for h in self._hooks
+                  if not isinstance(h, LoggerHook)
+                  and (type(h).before_train_iter is not Hook.before_train_iter
+                       or type(h).after_train_iter is not Hook.after_train_iter)]
+        if silent:
+            self.logger.warning(
+                f"fused epochs fire no iteration events: {', '.join(silent)} will not run "
+                "(drop --fuse_epochs to use them)")
 
     def flush_metrics(self):
         """Read the pending scalar metrics with one device-to-host copy."""

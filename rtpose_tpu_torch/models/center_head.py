@@ -102,6 +102,9 @@ class CenterHead(nn.Module):
         self.tasks_cfg = [dict(t) for t in tasks]
         self.weight = weight
         self.code_weights = tuple(code_weights)
+        # the loss's weights where the parameters are (no state_dict entry)
+        self.register_buffer("code_w", torch.tensor(self.code_weights, dtype=torch.float32),
+                             persistent=False)
         ch = in_channels
         if in_channels != share_conv_channel:
             self.shared_conv = nn.Sequential(
@@ -143,7 +146,6 @@ class CenterHead(nn.Module):
         (B, Z, Y, X, C), anno_pose (B, M, D), ind / mask / cat (B, M).
         Returns per-task lists ``loss``, ``hm_loss``, ``loc_loss``,
         ``loc_loss_elem`` (D,) and ``num_positive``."""
-        code_w = torch.tensor(self.code_weights, dtype=torch.float32)
         merged: Dict[str, list] = {k: [] for k in ("loss", "hm_loss", "loc_loss",
                                                    "loc_loss_elem", "num_positive")}
         for t, preds in enumerate(preds_dicts):
@@ -155,7 +157,7 @@ class CenterHead(nn.Module):
             else:
                 hm_loss = fast_focal_loss_logits(preds["hm"], hm, ind, mask, cat)
             rl = reg_loss(preds["reg"].float(), mask, ind, example["anno_pose"][t])
-            loc_loss = torch.sum(rl * code_w.to(rl.device))
+            loc_loss = torch.sum(rl * self.code_w)
             merged["loss"].append(hm_loss + self.weight * loc_loss)
             merged["hm_loss"].append(hm_loss)
             merged["loc_loss"].append(loc_loss)

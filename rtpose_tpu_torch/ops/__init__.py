@@ -4,12 +4,15 @@ from . import conv_k3, preprocess
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {"preprocess": preprocess.launches, "conv3d_k3": conv_k3.launches,
-            "conv3d_k3_bwd": conv_k3.launches_bwd}
+    """Kernel launches per wrapper since the last reset.  Only the wrappers
+    add to them, one per launch, so the replays of a captured CUDA graph,
+    which pass no wrapper, are not in them."""
+    return {"preprocess": preprocess.launches, "preprocess_single": preprocess.launches_single,
+            "conv3d_k3": conv_k3.launches, "conv3d_k3_bwd": conv_k3.launches_bwd}
 
 
 def reset_launch_counts() -> None:
     preprocess.launches = 0
+    preprocess.launches_single = 0
     conv_k3.launches = 0
     conv_k3.launches_bwd = 0

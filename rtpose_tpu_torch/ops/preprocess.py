@@ -23,8 +23,10 @@ import torch
 
 from . import build
 
-# kernel launches since the last reset (ops.reset_launch_counts)
+# kernel launches since the last reset (ops.reset_launch_counts), by the
+# wrapper they came through: ``fused_preprocess_batch`` / ``fused_preprocess``
 launches = 0
+launches_single = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -47,6 +49,13 @@ def fused_preprocess_batch(cubes: torch.Tensor,
     if cubes.device.type == "cpu":
         return preprocess_reference(cubes, roi_idx, norm_start, norm_scale)
     global launches
+    out = _launch(cubes, roi_idx, norm_start, norm_scale)
+    launches += 1
+    return out
+
+
+def _launch(cubes: torch.Tensor, roi_idx, norm_start: float, norm_scale: float) -> torch.Tensor:
+    """Check a CUDA (B, D, Z, Y, X) tensor and launch the kernel on it."""
     if cubes.device.type != "cuda":
         raise ValueError(f"preprocess kernel: unsupported device {cubes.device}")
     if cubes.dtype not in _DTYPE_CODE:
@@ -67,7 +76,6 @@ def fused_preprocess_batch(cubes: torch.Tensor,
         z0, y0, x0, zo, yo, xo, float(norm_start), 1.0 / float(norm_scale),
         torch.cuda.current_stream(cubes.device).cuda_stream)
     build.check(rc, "preprocess kernel")
-    launches += 1
     return out
 
 
@@ -78,5 +86,9 @@ def fused_preprocess(cube: torch.Tensor,
     launch of the batch kernel."""
     if cube.dim() != 4:
         raise ValueError(f"expected (D, Z, Y, X), got shape {tuple(cube.shape)}")
-    return fused_preprocess_batch(cube.unsqueeze(0), roi_idx, norm_start,
-                                  norm_scale)[0]
+    if cube.device.type == "cpu":
+        return preprocess_reference(cube, roi_idx, norm_start, norm_scale)
+    global launches_single
+    out = _launch(cube.unsqueeze(0), roi_idx, norm_start, norm_scale)[0]
+    launches_single += 1
+    return out

@@ -18,7 +18,8 @@ Counterpart of ``rtpose_tpu/solver/optim.py`` (reference
 
 Everything is a function of the optimizer's own step count, a tensor on
 the parameters' device, so a step needs nothing from the host.  The state
-lives in flat float32 buffers (one per moment), and one step is a handful
+lives in flat float32 buffers (one per moment) that a step updates in place
+(a captured step replays on the same tensors), and one step is a handful
 of elementwise passes over them; ``step(finite=...)`` keeps parameters,
 moments and the step count where ``finite`` is False (the train step's
 NaN/Inf guard) with ``torch.where``, on the device.
@@ -95,6 +96,9 @@ class AdamOneCycle:
         self.mu = torch.zeros(n, dtype=torch.float32, device=dev)
         self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
         self.step_count = torch.zeros((), dtype=torch.int64, device=dev)
+        # constants of a step, on the device once
+        self._beta1 = torch.tensor(0.9, dtype=torch.float32, device=dev)
+        self._beta2 = torch.tensor(beta2, dtype=torch.float32, device=dev)
 
     def _flat(self, tensors) -> torch.Tensor:
         return torch.cat([t.reshape(-1) for t in tensors])
@@ -108,8 +112,7 @@ class AdamOneCycle:
         gnorm = torch.linalg.vector_norm(g)
         step = self.step_count
         lr = self.lr_fn(step)
-        b1 = self.mom_fn(step) if self.mom_fn is not None else torch.tensor(
-            0.9, dtype=torch.float32, device=p.device)
+        b1 = self.mom_fn(step) if self.mom_fn is not None else self._beta1
         t = (step + 1).to(torch.float32)
         if self.grad_clip_norm is not None:
             g = g * torch.clamp(self.grad_clip_norm / (gnorm + 1e-6), max=1.0)
@@ -118,17 +121,16 @@ class AdamOneCycle:
         mu = b1 * self.mu + (1.0 - b1) * g
         nu = self.beta2 * self.nu + (1.0 - self.beta2) * torch.square(g)
         bc1 = 1.0 - torch.pow(b1, t)
-        bc2 = 1.0 - torch.pow(torch.tensor(self.beta2, dtype=torch.float32,
-                                           device=p.device), t)
+        bc2 = 1.0 - torch.pow(self._beta2, t)
         upd = -lr * (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
         if self.fixed_wd and self.weight_decay:
             upd = upd - (self.weight_decay * lr) * p
         new_p = p + upd
         if finite is None:
             finite = torch.ones((), dtype=torch.bool, device=p.device)
-        self.mu = torch.where(finite, mu, self.mu)
-        self.nu = torch.where(finite, nu, self.nu)
-        self.step_count = torch.where(finite, step + 1, step)
+        self.mu.copy_(torch.where(finite, mu, self.mu))
+        self.nu.copy_(torch.where(finite, nu, self.nu))
+        self.step_count.copy_(torch.where(finite, step + 1, step))
         new_p = torch.where(finite, new_p, p)
         torch._foreach_copy_(params, [v.view_as(q) for v, q in
                                       zip(torch.split(new_p, self.sizes), params)])
@@ -150,15 +152,14 @@ class AdamOneCycle:
         if sorted(state) != list(range(len(self.params))):
             raise ValueError(f"optimizer state for {len(state)} parameters, "
                              f"this optimizer has {len(self.params)}")
-        dev = self.mu.device
         for i, q in enumerate(self.params):
             for k in ("exp_avg", "exp_avg_sq"):
                 if tuple(state[i][k].shape) != tuple(q.shape):
                     raise ValueError(f"optimizer state {i}.{k}: shape "
                                      f"{tuple(state[i][k].shape)} != {tuple(q.shape)}")
-        self.mu = self._flat([state[i]["exp_avg"] for i in state]).float().to(dev)
-        self.nu = self._flat([state[i]["exp_avg_sq"] for i in state]).float().to(dev)
-        self.step_count = torch.as_tensor(state[0]["step"]).to(torch.int64).to(dev).reshape(())
+        self.mu.copy_(self._flat([state[i]["exp_avg"] for i in state]))
+        self.nu.copy_(self._flat([state[i]["exp_avg_sq"] for i in state]))
+        self.step_count.copy_(torch.as_tensor(state[0]["step"]).reshape(()))
 
 
 def build_optimizer_from_cfg(cfg, params: Sequence[torch.Tensor],

@@ -4,14 +4,16 @@ Same CLI as ``tools/test.py`` plus ``--device``::
 
     python -m rtpose_tpu_torch.tools.test CONFIG --checkpoint CKPT.pth \
         [--work_dir DIR] [--testset] [--speed_test] [--device_preprocess] \
-        [--final_dtype {bfloat16,float32}] [--device {cuda,cpu}]
+        [--final_dtype {bfloat16,float32}] [--profile] [--device {cuda,cpu}]
 
 ``--checkpoint`` is a reference-format ``.pth`` (``{"meta", "state_dict"}``,
 as ``rtpose_tpu_torch.tools.train`` writes them), or a directory whose
 ``latest`` file names one.
 Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
 ``<ckpt>_seq_results_{split}.json`` and prints ``Evaluation MPJPE: ...``;
-``--speed_test`` runs batch 1 and prints ``Total time per frame``.
+``--speed_test`` runs batch 1 and prints ``Total time per frame``;
+``--profile`` writes a ``torch.profiler`` Chrome trace of the whole eval to
+``<work_dir>/profile/trace.json``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--device_preprocess", action="store_true",
                    help="ship ROI-cropped RAW cubes; cast/normalize/layout "
                         "run on the card (preprocess kernel)")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of the whole eval into "
+                        "<work_dir>/profile/trace.json")
     p.add_argument("--final_dtype", default=None, choices=("bfloat16", "float32"),
                    help="override the head OUTPUT convs' compute dtype")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -51,6 +56,7 @@ def main(argv=None) -> dict:
     from rtpose_tpu_torch.data import BatchLoader
     from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step,
                                          resolve_checkpoint, run_eval, save_predictions)
+    from rtpose_tpu_torch.engine.hooks import start_trace, stop_trace
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("rtpose_tpu_torch")
@@ -79,9 +85,15 @@ def main(argv=None) -> dict:
                          num_workers=int(cfg.data.get("workers_per_gpu", 0)))
     eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
                                preprocess=preprocess)
-    detections, sec_per_frame = run_eval(
-        eval_step, loader, asm.decode_spec, device=device, one_hm=asm.one_hm,
-        speed_test=args.speed_test, logger=logger)
+    prof = start_trace(device) if args.profile else None
+    try:
+        detections, sec_per_frame = run_eval(
+            eval_step, loader, asm.decode_spec, device=device, one_hm=asm.one_hm,
+            speed_test=args.speed_test, logger=logger)
+    finally:
+        if prof is not None:
+            path = stop_trace(prof, device, os.path.join(work_dir, "profile"))
+            logger.info(f"profiler trace written to {path}")
     if sec_per_frame is not None:
         print(f"\n Total time per frame: {sec_per_frame}")
 

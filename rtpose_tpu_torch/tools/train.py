@@ -6,7 +6,8 @@ The CLI of ``tools/train.py`` plus ``--device``::
         [--resume_from CKPT] [--validate] [--seed N] [--total_epochs N] \
         [--stop_epoch N] [--lr_max X] [--pct_start X] [--div_factor X] \
         [--loc_weight X] [--loc_weight_early X --loc_weight_early_steps N] \
-        [--device_preprocess] [--remat] [--device {cuda,cpu}]
+        [--device_preprocess] [--remat] [--device_cache] [--cache_dtype DTYPE] \
+        [--stream_cache_gb G] [--fuse_epochs] [--profile N] [--device {cuda,cpu}]
 
 Writes ``<work_dir>/exp_config.py``, the text and JSON logs, and
 ``<work_dir>/checkpoints/epoch_N.pth`` with a ``latest`` pointer, which
@@ -14,8 +15,16 @@ Writes ``<work_dir>/exp_config.py``, the text and JSON logs, and
 initializes the weights (``models.init_weights`` on a ``torch.Generator``)
 and the loader's shuffle.  TensorBoard scalars are written when the
 config's ``log_config.hooks`` lists ``TensorboardLoggerHook`` and the
-``tensorboard`` package is installed.  The JAX CLI's multi-host, profiler,
-device-cache, streaming-cache and fused-epoch flags are not ported.
+``tensorboard`` package is installed.
+
+``--device_cache`` (or ``data.device_cache`` in the config) uploads the
+training set once and gathers every batch on the device; ``--cache_dtype``
+stores its large float arrays compressed; ``--stream_cache_gb`` does the
+same chunk by chunk for a set larger than the device's memory;
+``--fuse_epochs`` (with ``--device_cache``) runs each epoch as replays of
+one captured CUDA graph of the train step, with no Python between a step's
+operations (on the CPU: a plain loop).  The JAX CLI's ``--cache_shard`` and
+``--multihost`` belong to data parallelism and are not ported.
 """
 
 from __future__ import annotations
@@ -55,9 +64,41 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true",
                    help="recompute the forward in the backward "
                         "(torch.utils.checkpoint) instead of keeping activations")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="capture a torch.profiler trace of N train steps into "
+                        "<work_dir>/profile/trace.json")
+    p.add_argument("--device_cache", action="store_true",
+                   help="upload the whole training set to the device once and build "
+                        "batches with gathers there (sets that fit in half of the "
+                        "card's free memory; no per-step host-to-device traffic)")
+    p.add_argument("--cache_dtype", default=None,
+                   help="store the device cache compressed (bfloat16 halves it, "
+                        "float8_e4m3fn quarters it: run the trajectory gate before "
+                        "trusting a new dtype); only large float keys (the cubes) "
+                        "compress, pose labels keep full precision; batches are cast "
+                        "back after the gather")
+    p.add_argument("--stream_cache_gb", type=float, default=None,
+                   help="device-resident batches for sets larger than the device's "
+                        "memory: chunks of this many GB, the next one uploaded while "
+                        "the resident one trains (block-shuffle semantics)")
+    p.add_argument("--fuse_epochs", action="store_true",
+                   help="with --device_cache: run each epoch as replays of one "
+                        "captured CUDA graph of the train step (no per-step host "
+                        "dispatch; per-iteration hooks do not fire)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="run on the card (default) or the CPU")
     return p.parse_args(argv)
+
+
+def device_cache_cap(device):
+    """Most bytes ``--device_cache`` may put on the card: half of the memory
+    free on it when the cache is built; the other half stays for the
+    parameters, the optimizer's state and a step's activations.  No cap on
+    the CPU, where the cache lies in host memory."""
+    if device.type != "cuda":
+        return None
+    import torch
+    return torch.cuda.mem_get_info(device)[0] // 2
 
 
 def main(argv=None):
@@ -65,14 +106,19 @@ def main(argv=None):
     args = parse_args(argv)
     if args.loc_weight_early is not None and args.loc_weight_early_steps <= 0:
         raise SystemExit("--loc_weight_early needs --loc_weight_early_steps N (> 0)")
+    if args.fuse_epochs and args.stream_cache_gb:
+        raise SystemExit("--fuse_epochs needs the whole dataset resident "
+                         "(--device_cache); the streaming loader runs "
+                         "per-step — drop one of the flags")
     import numpy as np
     import torch
 
     from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg, resolve_device
     from rtpose_tpu_torch.config import Config
-    from rtpose_tpu_torch.data import BatchLoader
-    from rtpose_tpu_torch.engine import (Trainer, create_train_state, get_root_logger,
-                                         make_eval_step, make_train_step, run_eval)
+    from rtpose_tpu_torch.data import BatchLoader, DeviceCachedLoader, StreamingDeviceLoader
+    from rtpose_tpu_torch.engine import (ProfilerHook, Trainer, create_train_state,
+                                         get_root_logger, make_eval_step, make_train_step,
+                                         run_eval)
     from rtpose_tpu_torch.models import init_weights
     from rtpose_tpu_torch.solver import (build_optimizer_from_cfg, make_one_cycle_fns,
                                          piecewise_weight)
@@ -99,8 +145,22 @@ def main(argv=None):
                   if dataset.device_preprocess else None)
     batch_size = int(cfg.data["samples_per_gpu"])
     num_workers = int(cfg.data.get("workers_per_gpu", 0))
-    loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
-                         num_workers=num_workers)
+    if args.device_cache or cfg.data.get("device_cache", False):
+        loader = DeviceCachedLoader(dataset, batch_size=batch_size, device=device,
+                                    shuffle=True, seed=seed, cache_dtype=args.cache_dtype,
+                                    max_bytes=device_cache_cap(device))
+        logger.info(f"device-cached {len(dataset)} samples "
+                    f"({loader.nbytes / 1e9:.2f} GB on {device})")
+    elif args.stream_cache_gb:
+        loader = StreamingDeviceLoader(dataset, batch_size=batch_size,
+                                       chunk_bytes=int(args.stream_cache_gb * 1e9),
+                                       device=device, shuffle=True, seed=seed,
+                                       cache_dtype=args.cache_dtype)
+        logger.info(f"streaming device cache: {len(loader.chunks)} chunks x "
+                    f"{loader.samples_per_chunk} samples (double-buffered)")
+    else:
+        loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
+                             num_workers=num_workers)
     total_steps = len(loader) * total_epochs
 
     lr_cfg = dict(cfg.lr_config)
@@ -136,7 +196,10 @@ def main(argv=None):
                       device=device, lr_fn=lr_fn, enable_tensorboard=tensorboard,
                       log_interval=int(log_cfg.get("interval", 20)),
                       checkpoint_interval=int(dict(cfg.checkpoint_config).get("interval", 5)),
-                      meta=dict(config=cfg.text), logger=logger, stop_epoch=args.stop_epoch)
+                      meta=dict(config=cfg.text), logger=logger,
+                      fuse_epochs=args.fuse_epochs, stop_epoch=args.stop_epoch)
+    if args.profile:
+        trainer.register_hook(ProfilerHook(num_steps=args.profile))
     if args.resume_from or cfg.get("resume_from"):
         trainer.resume(args.resume_from or cfg.resume_from)
 

@@ -46,6 +46,8 @@ def test_preprocess_kernel_matches_plain(dev, dtype, shape, roi):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     single = preprocess.fused_preprocess(x[0], roi, 2.0, 8.0)
     torch.testing.assert_close(single, want[0], rtol=1e-6, atol=0)
+    counts = ops.launch_counts()    # each launch counts with the wrapper it came through
+    assert counts["preprocess"] == 1 and counts["preprocess_single"] == 1
 
 
 @pytest.mark.parametrize("shape,with_bias", [
@@ -139,7 +141,8 @@ def test_conv_backward_matches_plain(dev, shape, with_bias):
     out = conv_k3.Conv3dK3.apply(xk, wk, bk)
     out.backward(go)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"preprocess": 0, "conv3d_k3": 1, "conv3d_k3_bwd": 1}
+    assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 1,
+                                   "conv3d_k3_bwd": 1}
     want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
     torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want_gx.float().abs().max().item())
@@ -175,3 +178,125 @@ def test_module_grad_mode_has_grad_fn_and_right_gradients(dev):
                                atol=2e-3 * xr.grad.abs().max().item())
     torch.testing.assert_close(m.weight.grad, wr.grad, rtol=2.0 ** -7,
                                atol=2e-3 * wr.grad.abs().max().item())
+
+
+def test_float8_cache_rows_gather_on_the_card(dev):
+    """float8_e4m3fn cache rows are gathered as bytes on the card and come
+    back as on the CPU, bit for bit (the cast to float8 is made on the host,
+    the cast back on the card)."""
+    from rtpose_tpu_torch.data.loader import cache_cast, gather_batch
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((64, 4 * 6 * 8), generator=g) * 300          # some beyond +-464: NaN
+    rows = cache_cast(x, torch.float8_e4m3fn)
+    sel = torch.tensor([63, 0, 17, 17, 5, 40, 1, 2])
+    shapes, orig = {"x": (4, 6, 8)}, {"x": torch.float16}
+    want = gather_batch({"x": rows}, sel, 8, shapes, orig)["x"]
+    got = gather_batch({"x": rows.to(dev)}, sel.to(dev), 8, shapes, orig)["x"]
+    assert got.device.type == "cuda" and got.dtype == torch.float16 and got.shape == (8, 4, 6, 8)
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_captured_step_replayed_twice_equals_two_eager_steps(dev):
+    """``make_epoch_step`` on the card: one step captured in a CUDA graph and
+    replayed for both steps of an epoch, against two eager train steps on the
+    same cached rows, from the same weights.  A small bf16 model whose
+    backbone runs the K3 kernel forward and backward (32-channel stride-1
+    3x3x3 convs), raw f16 cubes through the preprocess kernel.
+
+    Tolerance: the trilinear upsample's backward adds bf16 values with
+    atomics, in an order that changes from run to run, so two eager runs
+    differ too, and Adam turns a last-bit difference of a small gradient into
+    a different step; with seeded random weights (losses of ~1e4) the second
+    step already sits on the first one's noise.  So the test measures the
+    noise: two eager runs against each other, as the distance between their
+    parameters over the distance moved from the seeded weights.  Held: the
+    graph run is as near to an eager run as three times that (at least 0.02),
+    every element within 2.05 lr per step, the first step's loss (same
+    weights, same batch) to 1e-3 relative and the second's to 5 %.  The launch
+    counts are the wrappers' own: a fused epoch passes them in its warm-up step
+    and in the capture and in no replay, so they read two steps' worth after
+    the first epoch and the same after the second."""
+    from rtpose_tpu_torch.core.targets import PoseTargetSpec
+    from rtpose_tpu_torch.engine import create_train_state, make_epoch_step, make_train_step
+    from rtpose_tpu_torch.models import build_detector, init_weights
+    from rtpose_tpu_torch.solver import AdamOneCycle
+
+    grid, lr, bs, n = (8, 16, 32), 1e-3, 2, 4
+    cfg = dict(
+        type="RadarPoseNet", reader=dict(type="RadarFeatureNet"),
+        backbone=dict(type="HRNet3D", backbone_cfg="hr_tiny_feat32_zyx_l4_in32",
+                      final_conv_in=192, final_conv_out=128, final_fuse="conat_conv",
+                      ds_factor=1, dtype="bfloat16"),
+        pose_head=dict(type="CenterHead", tasks=[dict(num_class=1, class_names=["Pelvis"])],
+                       in_channels=128, share_conv_channel=64, common_heads={"reg": (45, 2)},
+                       weight=0.5, code_weights=[1.0] * 45, dtype="bfloat16"),
+        neck=None)
+    spec = PoseTargetSpec(grid_zyx=grid, pc_range_min_xyz=(0.0, -4.0, -1.0),
+                          voxel_size_xyz=(0.25, 0.5, 0.25), max_poses=1, min_radius=2,
+                          mode="one_hm", num_classes=1)
+    g = torch.Generator().manual_seed(0)
+    Z, Y, X = grid
+    raw = (torch.rand((n, 32, Z, Y, X), generator=g) * 12).half()
+    poses = (torch.rand((n, 1, 15, 3), generator=g) * 0.6 + 0.2) \
+        * torch.tensor([X * 0.25, Y * 0.5, Z * 0.25]) + torch.tensor([0.0, -4.0, -1.0])
+    data = {"rdr_raw": raw.reshape(n, -1).to(dev), "poses": poses.reshape(n, -1).to(dev),
+            "num_poses": torch.ones((n, 1), dtype=torch.int32, device=dev)}
+    shapes = {"rdr_raw": (32, Z, Y, X), "poses": (1, 15, 3), "num_poses": ()}
+    idx = torch.tensor([2, 0, 3, 1]).numpy()
+
+    def fresh():
+        model = init_weights(build_detector(cfg), torch.Generator().manual_seed(1)).to(dev)
+        opt = AdamOneCycle(list(model.parameters()), lambda s: torch.full((), lr, device=dev),
+                           None, weight_decay=0.0)
+        step = make_train_step(model, model.pose_head, spec, opt, sparse_reg=True,
+                               preprocess=(0.0, 10.0))
+        return model, step, create_train_state(model, opt)
+
+    def flat(model):
+        return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+    def eager():
+        model, step, state = fresh()
+        losses = []
+        for b in range(n // bs):
+            sel = torch.from_numpy(idx[b * bs:(b + 1) * bs]).to(dev)
+            batch = {k: v.index_select(0, sel).reshape(bs, *shapes[k])
+                     for k, v in data.items()}
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        return flat(model), losses
+
+    p0 = flat(fresh()[0])
+    ops.reset_launch_counts()
+    params_e, losses_e = eager()
+    eager_counts = ops.launch_counts()
+    params_e2, _ = eager()
+    noise = float((params_e2 - params_e).norm() / (params_e - p0).norm())
+    assert eager_counts["preprocess"] == 2 and eager_counts["conv3d_k3"] > 0 \
+        and eager_counts["conv3d_k3_bwd"] > 0
+
+    model_g, step_g, state_g = fresh()
+    epoch_fn = make_epoch_step(step_g, bs, shapes, {})
+    ops.reset_launch_counts()
+    state_g, ms = epoch_fn(state_g, data, idx)
+    torch.cuda.synchronize()
+    assert epoch_fn.graph is not None and epoch_fn.replays == 2
+    per_step = {k: v // 2 for k, v in eager_counts.items()}
+    assert epoch_fn.launches_per_step == per_step
+    warm_and_capture = {k: 2 * v for k, v in per_step.items()}
+    assert ops.launch_counts() == warm_and_capture
+    assert int(state_g.step) == int(state_g.optimizer.step_count) == 2
+    assert ms["loss"].shape == (2,) and float(ms["skipped"].sum()) == 0.0
+    assert float(ms["loss"][0]) == pytest.approx(losses_e[0], rel=1e-3)
+    assert float(ms["loss"][1]) == pytest.approx(losses_e[1], rel=0.05)
+    assert torch.isfinite(ms["loss"]).all() and torch.isfinite(ms["grad_norm"]).all()
+    params_g = flat(model_g)
+    assert float((params_g - params_e).abs().max()) <= 2 * 2.05 * lr
+    dist = float((params_g - params_e).norm() / (params_e - p0).norm())
+    assert dist <= max(3 * noise, 0.02), (dist, noise)
+    # a second epoch replays the same graph
+    state_g, ms = epoch_fn(state_g, data, idx)
+    assert epoch_fn.replays == 4 and int(state_g.step) == 4 and torch.isfinite(ms["loss"]).all()
+    assert ops.launch_counts() == warm_and_capture

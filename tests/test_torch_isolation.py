@@ -21,6 +21,11 @@ def test_fresh_interpreter_loads_no_jax():
     code = (
         "import sys, rtpose_tpu_torch, rtpose_tpu_torch.tools.test, chip_smoke\n"
         "import rtpose_tpu_torch.tools.train, rtpose_tpu_torch.solver\n"
+        "import rtpose_tpu_torch.tools.trajectory_gate, rtpose_tpu_torch.solver.schedules\n"
+        "import rtpose_tpu_torch.data.loader, rtpose_tpu_torch.engine.hooks\n"
+        "import rtpose_tpu_torch.engine.steps, rtpose_tpu_torch.core.targets\n"
+        "from rtpose_tpu_torch.data import DeviceCachedLoader, StreamingDeviceLoader\n"
+        "from rtpose_tpu_torch.engine import HTTPLoggerHook, ProfilerHook, make_epoch_step\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

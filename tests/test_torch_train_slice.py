@@ -207,6 +207,19 @@ def test_checkpoint_evaluates_and_loads_into_flax(cli_runs, env, capsys):
     np.testing.assert_array_equal(np.asarray(leaf), sd["pose_head.tasks.0.hm.2.bias"])
 
 
+def test_test_cli_profile_writes_a_trace(cli_runs, env):
+    """``tools.test --profile``: a Chrome trace of the whole eval under
+    ``<work_dir>/profile``, with the forward's operations in it."""
+    full, _ = cli_runs
+    work = os.path.join(full, "eval_profile")
+    out = port_test.main([env["cfg_path"], "--checkpoint", full, "--work_dir", work,
+                          "--testset", "--profile", "--device", "cpu"])
+    assert len(out["detections"]) == 4
+    with open(os.path.join(work, "profile", "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::conv3d" in names
+
+
 def test_train_cli_needs_a_card_unless_cpu_asked(env, tmp_path):
     """The train entry point runs on the card by default and refuses to go
     on quietly on the CPU when there is none."""
