@@ -97,6 +97,7 @@ FLAGSHIP = os.path.join(REPO, "configs", "cruw_pose", "hr3d_one_hm_doppler.py")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, HBM rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # K3 tolerance: the kernel and the plain version both accumulate in float32
@@ -138,6 +139,22 @@ RUN_FIRST_LOSS_RTOL, RUN_EARLY_LOSS_RTOL, RUN_EPOCH_MEAN_RTOL = 1e-3, 0.02, 0.03
 # 1.5 times the host-vs-cache distance printed before it
 RUN_PARAM_REL_DIST, RUN_PARAM_NOISE_FACTOR = 0.6, 1.5
 STREAM_GB = 0.3    # --stream_cache_gb: chunks of 24 frames, four on the 96-frame root
+
+# int8 serving.  The int8 K3 kernel equals its plain version bit for bit
+# (the same exact integer sums, the same float32 multiply and add, one
+# rounding): compared with torch.equal.  Card (bf16 activations + kernels)
+# vs CPU (float32), both int8 with the same scales: the two round different
+# activations to a different int8 value at the 51 sites, and the flips
+# compound; CPU runs of the port at the tiny grid (8, 16, 32), bf16 against
+# float32 both int8, differed by 7-9 % of the heatmap logit range and 3-13 %
+# of max |reg| (int8 against float32 alone: 8-11 %).  Allowed: 25 % of each,
+# and the bf16 peak of a frame within 25 % of the range of the int8 max.
+INT8_E2E_FRAC = 0.25
+INT8_SITES = 51     # int8 sites of the flagship at the default exclusion
+# the bf16 artifact runs the live model's operations on the same weights
+SERVE_ARTIFACT_ATOL_M = 1e-5
+SERVE_BATCHES = (8, 32)   # throughput rows, and B of the tools.test artifacts
+SERVE_CALLS = 10
 
 FRAMES = 300    # test frames of the synthetic root (2 sequences x 150)
 TRAIN_FRAMES = 96   # train frames of the training root (2 sequences x 48)
@@ -475,6 +492,317 @@ def phase_autograd(dev):
           f"{gx:.3e}, grad-weight max err {gw:.3e} (max |gw| {wr.grad.abs().max().item():.3f})")
 
 
+def int8_row(ms, plain_ms, stock_ms, bf16_ms, xq, **extra):
+    """One int8 K3 launch's numbers: device times, its bound (the larger of
+    its int8 operations over the int8 tensor-core peak and its bytes, the
+    int8 input and bf16 output once, weights and scales once, over the
+    memory rate), TOPS and the share of the bound."""
+    n = xq.numel() // 32
+    ops = 2 * 27 * 32 * 32 * n
+    nbytes = n * 32 + n * 32 * 2 + 27 * 32 * 32 + 32 * 4
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    return dict(ms=ms, plain_ms=plain_ms, stock_ms=stock_ms, k3_bf16_ms=bf16_ms,
+                library_ms=None, bound_ms=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gop=ops / 1e9, tops=ops / ms / 1e9, share_of_bound=bound / ms,
+                kernel_over_stock=ms / stock_ms, kernel_over_bf16_k3=ms / bf16_ms, **extra)
+
+
+def phase_conv_int8(dev):
+    """The int8 K3 kernel against its plain version, bit for bit, at the main
+    path's four shapes (bf16 and float32 out), a ragged shape with bias and
+    B * Z above 65535; two launches bit-identical; device times beside the
+    plain version, the stock route (int8 im2col + ``torch._int_mm``) and the
+    bf16 K3 kernel at the four shapes."""
+    import torch
+    from rtpose_tpu_torch.ops import conv_k3 as ck
+    from rtpose_tpu_torch.ops import conv_k3_int8 as ck8
+    from rtpose_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand_q(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    wq = rand_q((32, 32, 3, 3, 3))
+    scale = torch.rand((32,), generator=gen, device=dev) * 1e-3
+    bias = torch.randn((32,), generator=gen, device=dev)
+    checked = []
+    cases = [(shape, None) for shape in K3_SHAPES] + [((2, 5, 13, 37), bias),
+                                                     ((1, 70000, 2, 3), bias)]
+    for shape, b in cases:
+        xq = rand_q((*shape, 32))
+        for dt in (torch.bfloat16, torch.float32):
+            got = ck8.conv3d_k3_int8(xq, wq, scale, b, dt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ck8.conv3d_k3_int8_reference(xq, wq, scale, b, dt)):
+                fail(f"int8 K3 {shape} {dt}: not bit-equal to its plain version")
+            checked.append(f"{shape} {str(dt)[6:]}")
+    xq = rand_q((8, 16, 64, 160, 32))
+    if not torch.equal(ck8.conv3d_k3_int8(xq, wq, scale, bias),
+                       ck8.conv3d_k3_int8(xq, wq, scale, bias)):
+        fail("int8 K3: two launches on the same inputs differ")
+    print(f"[int8 conv] bit-equal to the plain version: {checked}; two launches bit-identical")
+    rows = {}
+    wk = ck8.prepare(wq)
+    w = torch.randn((32, 32, 3, 3, 3), generator=gen, device=dev) * 0.06
+    wr, _ = ck.prepare(w)
+    for shape in K3_SHAPES:
+        xq = rand_q((*shape, 32))
+        xb = torch.randn((*shape, 32), generator=gen, device=dev).to(torch.bfloat16)
+        r = int8_row(device_ms(lambda: ck8.launch(xq, wk, scale)),
+                     device_ms(lambda: ck8.conv3d_k3_int8_reference(xq, wq, scale)),
+                     device_ms(lambda: quant.epilogue(quant.int8_conv_acc(xq, wq, 1), scale,
+                                                      None, torch.bfloat16)),
+                     device_ms(lambda: ck.launch(xb, wr)), xq,
+                     wrapper_ms=wrapper_ms(lambda: ck8.conv3d_k3_int8(xq, wq, scale)))
+        rows[str(shape)] = r
+        print(f"[int8 conv] {shape}: {r['ms']:.4f} ms ({r['tops']:.1f} TOPS, "
+              f"{100 * r['share_of_bound']:.1f} % of bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, stock im2col + _int_mm "
+              f"{r['stock_ms']:.4f} ms, bf16 K3 {r['k3_bf16_ms']:.4f} ms")
+    main = rows[str(K3_SHAPES[0])]
+    return dict(name="conv3d_k3_int8", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3_int8.cu",
+                replaces="none: not a TPU kernel (the JAX package runs this int8 conv on XLA, "
+                         "rtpose_tpu/ops/quant.py:191 conv3d_int8)",
+                max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+                stock_ms=main["stock_ms"], k3_bf16_ms=main["k3_bf16_ms"],
+                wrapper_ms=main["wrapper_ms"], shape="(1, 16, 64, 160, 32) int8 -> bf16",
+                bit_equal=True, shapes=rows)
+
+
+def throughput(fn, x, batch: int) -> dict:
+    """Frames/s of ``fn(x)`` (forward + decode) at a fixed batch: SERVE_CALLS
+    calls after two warm-ups, between CUDA events (host dispatch included
+    where the card waits for it)."""
+    import torch
+    for _ in range(2):
+        fn(x)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(SERVE_CALLS):
+        fn(x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SERVE_CALLS
+    return dict(ms_per_batch=ms, frames_per_s=batch * 1e3 / ms)
+
+
+def phase_serving(tmp, cfg_path, cfg, ckpt, dev):
+    """The serving path: ``tools.export`` of the flagship's seeded weights as
+    a bf16 and an int8 artifact (8 calibration batches, 51 sites),
+    ``tools.test --exported --speed_test`` on each over the FRAMES-frame
+    root with the launch counts per forward, the bf16 artifact's
+    predictions against the live bf16 run, int8 against bf16 on one batch,
+    one int8 frame on the card against the port's CPU int8 run in float32,
+    throughput rows at SERVE_BATCHES, and a trace of one int8 batch."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg
+    from rtpose_tpu_torch.engine import bind_sites, load_checkpoint
+    from rtpose_tpu_torch.export import export_predict, load_predict, make_predict_fn
+    from rtpose_tpu_torch.models import build_detector
+    from rtpose_tpu_torch.ops import quant
+    from rtpose_tpu_torch.tools import export as port_export
+    from rtpose_tpu_torch.tools import test as port_test
+
+    work = os.path.join(tmp, "serving")
+    os.makedirs(work, exist_ok=True)
+    B = SERVE_BATCHES[0]
+    paths = {k: os.path.join(work, f"flagship_{k}_b{B}.pt2") for k in ("bf16", "int8")}
+    t0 = time.perf_counter()
+    port_export.main([cfg_path, "--checkpoint", ckpt, "--out", paths["bf16"],
+                      "--batch_size", str(B)])
+    t_bf16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = port_export.main([cfg_path, "--checkpoint", ckpt, "--out", paths["int8"],
+                            "--batch_size", str(B), "--int8", "--calib_batches", "8",
+                            "--calib_split", "test"])
+    t_int8 = time.perf_counter() - t0
+    scales = res["int8_scales"]
+    if len(scales) != INT8_SITES:
+        fail(f"int8 export calibrated {len(scales)} sites, expected {INT8_SITES}")
+    print(f"[serving] tools.export: bf16 {t_bf16:.1f} s, int8 {t_int8:.1f} s ({len(scales)} "
+          f"sites); {os.path.getsize(paths['bf16'])} and {os.path.getsize(paths['int8'])} bytes")
+
+    forwards = -(-FRAMES // B)
+    runs, counts = {}, {}
+    for kind in ("bf16", "int8"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = port_test.main([cfg_path, "--exported", paths[kind], "--work_dir",
+                              os.path.join(work, kind), "--testset", "--speed_test"])
+        wall = time.perf_counter() - t0
+        counts[kind] = ops.launch_counts()
+        runs[kind] = out
+        if len(out["detections"]) != FRAMES or out["sec_per_frame"] is None:
+            fail(f"{kind} artifact: {len(out['detections'])} frames decoded, no speed window")
+        print(f"[serving] tools.test --exported {kind} (B={B}): {wall:.1f} s wall, "
+              f"{out['sec_per_frame'] * 1e3:.3f} ms/frame, MPJPE {out['results']['MPJPE']} mm, "
+              f"launch counts {counts[kind]}")
+    want = {"bf16": dict(conv3d_k3=K3_PER_STEP * forwards, conv3d_k3_int8=0),
+            "int8": dict(conv3d_k3=0, conv3d_k3_int8=K3_PER_STEP * forwards)}
+    for kind, w in want.items():
+        got = {k: counts[kind][k] for k in w}
+        if got != w or counts[kind]["preprocess"] != 0:
+            fail(f"{kind} artifact: launch counts {counts[kind]}, expected {w} over "
+                 f"{forwards} forwards")
+
+    # the bf16 artifact's predictions against the live bf16 model's
+    live = port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir",
+                           os.path.join(work, "live"), "--testset"])
+    def kpts(det):
+        return np.array([[p[1:4] for p in det[k]["keypoints"]] for k in sorted(det)])
+    art_err = float(np.abs(kpts(runs["bf16"]["detections"]) - kpts(live["detections"])).max())
+    if art_err > SERVE_ARTIFACT_ATOL_M:
+        fail(f"bf16 artifact vs live bf16: keypoints apart by {art_err} m")
+    int8_vs_bf16 = float(np.linalg.norm(kpts(runs["int8"]["detections"])
+                                        - kpts(runs["bf16"]["detections"]), axis=-1).mean())
+    print(f"[serving] bf16 artifact vs live bf16 (B={B}): max keypoint difference {art_err} m; "
+          f"int8 vs bf16 artifact: mean keypoint distance {int8_vs_bf16 * 1e3:.2f} mm")
+
+    # one batch on the card: int8 heatmap peaks against bf16's
+    asm = assemble(cfg)
+    asm.model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+    asm.model.to(dev).eval()
+    bind_sites(asm.model)
+    ds = build_dataset_from_cfg(cfg.data, "test")
+    # a dataset item is a transposed view; the kernels take contiguous inputs
+    frames = [torch.from_numpy(np.ascontiguousarray(ds[i]["rdr_tensor"]))
+              for i in range(max(SERVE_BATCHES))]
+    xb = torch.stack(frames[:B]).to(dev)
+    with torch.inference_mode():
+        hm_b, _, peak_b = asm.model.predict_sparse(xb)
+        with quant.int8_mode(scales):
+            hm_q, _, peak_q = asm.model.predict_sparse(xb)
+    hm_b, hm_q = hm_b.float().reshape(B, -1), hm_q.float().reshape(B, -1)
+    span = (hm_q.max(1).values - hm_q.min(1).values)
+    gap = (hm_q.max(1).values - hm_q.gather(1, peak_b[:, None])[:, 0]) / span
+    same = int((peak_b == peak_q).sum())
+    print(f"[serving] int8 vs bf16 on {B} frames: {same} peaks identical; bf16 peak below the "
+          f"int8 max by at most {gap.max().item():.4f} of the int8 logit range (limit "
+          f"{INT8_E2E_FRAC})")
+    if gap.max().item() > INT8_E2E_FRAC:
+        fail(f"int8 heatmap: the bf16 peak is {gap.max().item():.3f} of the range below its max")
+
+    # one frame: int8 on the card (bf16 activations, kernels) vs the CPU in float32
+    model_cfg = copy.deepcopy(dict(cfg.model))
+    model_cfg["backbone"]["dtype"] = "float32"
+    model_cfg["pose_head"]["dtype"] = "float32"
+    cpu = build_detector(model_cfg)
+    cpu.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+    cpu.eval()
+    bind_sites(cpu)
+    x1 = frames[0][None]
+    t0 = time.perf_counter()
+    with torch.inference_mode(), quant.int8_mode(scales):
+        hm_g, reg_g, p = asm.model.predict_sparse(x1.to(dev))
+        feat = cpu.extract_feat(x1)
+        hm_c = cpu.pose_head(feat, branch="hm")[0]["hm"]
+        _, Z, Y, X, _ = hm_c.shape
+        p = p.cpu()
+        reg_c = cpu._reg_patches(feat, p // (Y * X), (p % (Y * X)) // X, p % X, (Z, Y, X))
+    t_cpu = time.perf_counter() - t0
+    hm_g, reg_g = hm_g.float().cpu(), reg_g.float().cpu()
+    span1 = (hm_c.max() - hm_c.min()).item()
+    hm_err = check_close("int8 heatmap card vs cpu", hm_g, hm_c, 0.0, INT8_E2E_FRAC * span1)
+    gap1 = hm_c.max().item() - hm_c.reshape(-1)[int(p)].item()
+    if gap1 > INT8_E2E_FRAC * span1:
+        fail(f"int8: card peak {int(p)} is {gap1:.3f} below the CPU max")
+    reg_err = check_close("int8 reg at peak card vs cpu", reg_g, reg_c, 0.0,
+                          INT8_E2E_FRAC * reg_c.abs().max().item())
+    print(f"[serving] int8 frame card vs CPU float32 ({t_cpu:.1f} s): heatmap max err "
+          f"{hm_err:.4f} of range {span1:.3f} ({hm_err / span1:.4f}); peak {int(p)} below the "
+          f"CPU max by {gap1 / span1:.4f} of the range; reg max err {reg_err:.4f} (max |reg| "
+          f"{reg_c.abs().max().item():.3f})")
+
+    # throughput of the predict path (forward + decode)
+    rows = {}
+    for batch in SERVE_BATCHES:
+        x = torch.stack((frames * -(-batch // len(frames)))[:batch]).to(dev)
+        live_fn = make_predict_fn(asm)
+        row = {"live bf16": throughput(live_fn, x, batch)}
+        for label, kw in (("bf16 artifact", {}), ("int8 artifact", dict(int8_scales=scales)),
+                          ("int8 + final_dtype bfloat16 artifact",
+                           dict(int8_scales=scales, final_dtype="bfloat16"))):
+            kind = {"bf16 artifact": "bf16", "int8 artifact": "int8"}.get(label)
+            t0 = time.perf_counter()
+            if batch == B and kind:
+                # the artifact tools.export wrote above, loaded as a server would
+                fn, how = load_predict(paths[kind]), "load_s"
+            else:
+                fn = export_predict(asm, batch_size=batch, device="cuda", **kw).module()
+                how = "export_s"
+            row[label] = dict(**throughput(fn, x, batch), **{how: time.perf_counter() - t0})
+        rows[str(batch)] = row
+        for label, r in row.items():
+            print(f"[serving] B={batch} {label}: {r['frames_per_s']:.1f} frames/s "
+                  f"({r['ms_per_batch']:.3f} ms/batch)")
+    # one int8 batch at B under torch.profiler: device time by operation.
+    # Two forwards: the first is the profiler's warm-up and is not recorded
+    int8_fn = make_predict_fn(asm, int8_scales=scales)
+    int8_fn(xb)
+    torch.cuda.synchronize()
+    traced = []
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
+            int8_fn(xb)
+            torch.cuda.synchronize()
+            prof.step()
+    wrapped = ops.launch_counts()["conv3d_k3_int8"] // 2
+    if not traced:
+        fail("the int8 trace recorded nothing")
+    events = traced[0]
+    # the step's own range shows on the device too: not an operation
+    dev_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    if not dev_ops:
+        fail("the int8 trace holds no device operation")
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    k8 = [e for e in dev_ops if "conv3d_k3_int8_kernel" in e.key]
+    k8_ms = sum(e.self_device_time_total for e in k8) / 1e3
+    k8_n = sum(e.count for e in k8)
+    int_mm = sum(e.count for e in events if e.key == "aten::_int_mm")
+    print(f"[serving trace] one int8 batch at B={B}: device busy {busy} ms in "
+          f"{sum(e.count for e in dev_ops)} device operations, int8 K3 kernel {k8_ms} ms in "
+          f"{k8_n} launches in the trace, {wrapped} counted by its wrapper "
+          f"({100 * k8_ms / busy:.1f} %), {int_mm} torch._int_mm calls")
+    top = sorted(dev_ops, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    for e in top:
+        print(f"[serving trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3:9.4f} ms "
+              f"{e.count:6d}")
+    if wrapped != K3_PER_STEP or int_mm != INT8_SITES - K3_PER_STEP:
+        fail(f"int8 forward: {wrapped} int8 kernel launches and {int_mm} _int_mm calls, "
+             f"expected {K3_PER_STEP} and {INT8_SITES - K3_PER_STEP}")
+    return dict(
+        batch=B, int8_sites=len(scales), frames=FRAMES, forwards=forwards,
+        artifact_bytes={k: os.path.getsize(v) for k, v in paths.items()},
+        export_s=dict(bf16=t_bf16, int8=t_int8),
+        ms_per_frame={k: runs[k]["sec_per_frame"] * 1e3 for k in runs},
+        mpjpe_mm={k: runs[k]["results"]["MPJPE"] for k in runs},
+        launches=counts, bf16_artifact_vs_live_max_m=art_err,
+        int8_vs_bf16_mean_keypoint_mm=int8_vs_bf16 * 1e3,
+        int8_vs_bf16_peaks_identical=same, int8_vs_bf16_peak_gap_max=gap.max().item(),
+        card_vs_cpu_int8=dict(hm_err_frac=hm_err / span1, peak_gap_frac=gap1 / span1,
+                              reg_err=reg_err, reg_max=reg_c.abs().max().item()),
+        throughput=rows,
+        trace=dict(device_busy_ms=busy, int8_kernel_ms=k8_ms, int8_kernel_share=k8_ms / busy,
+                   int8_kernel_launches_traced=k8_n, int8_kernel_launches=wrapped,
+                   int_mm_calls=int_mm, device_ops=sum(e.count for e in dev_ops),
+                   top=[(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top]))
+
+
 def write_inputs(tmp):
     """A synthetic root of FRAMES test frames at the flagship geometry, with
     each cube stored pre-cropped to the ROI (the shape the loader ships
@@ -532,8 +860,9 @@ def phase_e2e(tmp, cfg_path, ckpt):
         fail(f"{len(out['detections'])} frames decoded, expected {FRAMES}")
     if counts["preprocess"] != FRAMES:
         fail(f"preprocess kernel launched {counts['preprocess']} times, expected {FRAMES}")
-    if counts["conv3d_k3"] != 14 * FRAMES:
-        fail(f"conv kernel launched {counts['conv3d_k3']} times, expected {14 * FRAMES}")
+    if counts["conv3d_k3"] != 14 * FRAMES or counts["conv3d_k3_int8"] != 0:
+        fail(f"conv kernels launched {counts['conv3d_k3']} / {counts['conv3d_k3_int8']} "
+             f"(bf16 / int8) times, expected {14 * FRAMES} / 0")
     print(f"[e2e] MPJPE {mpjpe} mm, {out['sec_per_frame'] * 1e3:.3f} ms/frame at B=1")
     return out, counts
 
@@ -706,7 +1035,7 @@ def run_train(tag, argv, epochs, counted_steps=None):
         fail(f"{tag}: {int(sum(skipped))} train steps skipped")
     counted = steps if counted_steps is None else counted_steps
     want = {"preprocess": counted, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * counted,
-            "conv3d_k3_bwd": K3_PER_STEP * counted}
+            "conv3d_k3_bwd": K3_PER_STEP * counted, "conv3d_k3_int8": 0}
     if counts != want:
         fail(f"{tag}: training launch counts {counts}, expected {want}")
     print(f"[{tag}] losses {[round(v, 4) for v in losses]}")
@@ -986,11 +1315,12 @@ def phase_train_cached(tmp, cfg_path, host_run, p0):
 
 def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
     """``--device_cache --fuse_epochs``: the graph path taken, the run against
-    the per-step device-cache run, ms/step; then one more fused epoch, called
-    as the trainer calls it, under torch.profiler: the kernels its replays
-    launched, counted by name in the trace."""
+    the per-step device-cache run, ms/step; then two more fused epochs,
+    called as the trainer calls them, under torch.profiler (the first its
+    warm-up): the kernels the second one's replays launched, counted by name
+    in the trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from rtpose_tpu_torch import ops
     from rtpose_tpu_torch.config import Config
@@ -1006,7 +1336,7 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
     if es.replays != steps:
         fail(f"fused: {es.replays} graph replays for {steps} steps")
     captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-                "conv3d_k3_bwd": K3_PER_STEP}
+                "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0}
     if es.launches_per_step != captured:
         fail(f"fused: the wrappers counted {es.launches_per_step} during the capture, "
              f"expected {captured}")
@@ -1017,24 +1347,34 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
           f"its {per_epoch} steps; the first holds the warm-up step and the capture): "
           f"{by_epoch}; {8e3 / steady} frames/s")
     cmp = compare_runs("fused vs device cache per step", run, cached_run, p0, noise_dist)
-    # one more epoch, replays only, traced
+    # two more epochs, replays only, under the profiler: the first is its
+    # warm-up and is not recorded (a trace of one cold epoch once held 335 of
+    # the 336 K3 launches), the second is the traced epoch
     loader = trainer.loader
-    loader.set_epoch(TRAIN_EPOCHS)
-    idx = loader.fused_epoch()[0]
     ops.reset_launch_counts()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, metrics = es(trainer.state, loader.data, idx)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / per_epoch
-    if es.replays != steps + per_epoch:
-        fail(f"fused: the traced epoch made {es.replays - steps} replays")
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        for epoch in (TRAIN_EPOCHS, TRAIN_EPOCHS + 1):
+            loader.set_epoch(epoch)
+            idx = loader.fused_epoch()[0]
+            t0 = time.perf_counter()
+            _, metrics = es(trainer.state, loader.data, idx)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / per_epoch
+            prof.step()
+    if es.replays != steps + 2 * per_epoch:
+        fail(f"fused: the two traced epochs made {es.replays - steps} replays")
     if any(ops.launch_counts().values()):
         fail(f"fused: replays passed the wrappers: {ops.launch_counts()}")
     if not torch.isfinite(metrics["loss"]).all() or float(metrics["skipped"].sum()) != 0.0:
         fail(f"fused: the traced epoch's losses {metrics['loss'].tolist()}")
-    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not recorded:
+        fail("the fused trace recorded nothing")
+    # the step's own range shows on the device too: not an operation
+    dev_ops = [e for e in recorded[0] if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
     if not dev_ops:
         fail("the fused trace holds no device operation")
     busy = sum(e.self_device_time_total for e in dev_ops) / 1e3 / per_epoch
@@ -1142,13 +1482,15 @@ def main() -> int:
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev)]
+    kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev),
+               phase_conv_int8(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
         out, counts = phase_e2e(tmp, cfg_path, ckpt)
         e2e = phase_speed_and_trace(tmp, cfg_path, ckpt, out["sec_per_frame"] * 1e3)
         phase_cpu_compare(cfg, ckpt, out["detections"], dev)
+        serving = phase_serving(tmp, cfg_path, cfg, ckpt, dev)
         train_cfg = write_train_inputs(tmp)
         train, host_run = phase_train(tmp, train_cfg)
         train.update(phase_train_trace(tmp, train_cfg, train["ms_per_step_median"]))
@@ -1162,7 +1504,9 @@ def main() -> int:
         train["stream"] = phase_train_stream(tmp, train_cfg)
         train["profile"] = phase_train_profile(tmp, train_cfg)
     tc, ft = train["launches"], train["fused"]["trace_launches"]
-    k1, k2, k3, k3_bwd = kernels
+    k1, k2, k3, k3_bwd, k3_int8 = kernels
+    # the serving path's own run: the int8 artifact through tools.test
+    k3_int8["launches"] = serving["launches"]["int8"]["conv3d_k3_int8"]
     k1["launches"] = counts["preprocess"]
     # on no path: its wrapper's count over the eval run and every training run
     k2["launches"] = counts["preprocess_single"] + sum(
@@ -1182,6 +1526,7 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

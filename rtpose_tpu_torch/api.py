@@ -44,6 +44,12 @@ class Assembly:
     one_hm: bool
     model_cfg: Any = None          # the cfg.model dict the detector was built from
     target_spec: PoseTargetSpec = None
+    input_shape_zyxc: Tuple[int, int, int, int] = None   # one model input, unbatched
+
+    def example_input(self, batch: int = 1, device=None) -> torch.Tensor:
+        """A zeros (B, Z, Y, X, C) float32 model input."""
+        return torch.zeros((batch, *self.input_shape_zyxc), dtype=torch.float32,
+                           device=device)
 
     @property
     def head(self):
@@ -98,9 +104,12 @@ def assemble(cfg) -> Assembly:
         min_radius=int(assigner_cfg.get("min_radius", 2)),
         mode=mode,
         num_classes=len(model_cfg["pose_head"]["tasks"][0]["class_names"]))
+    from .models.hrnet3d import MODEL_CONFIGS
+    arch = model_cfg["backbone"].get("backbone_cfg", "hr_tiny_feat16_zyx_l4")
+    channels = MODEL_CONFIGS[arch]["layer1"]["inplanes"]
     return Assembly(model=build_detector(model_cfg), decode_spec=decode_spec,
                     one_hm=(mode == "one_hm"), model_cfg=model_cfg,
-                    target_spec=target_spec)
+                    target_spec=target_spec, input_shape_zyxc=(*grid, channels))
 
 
 def serving_variant(asm: Assembly, final_dtype) -> Assembly:

@@ -1,6 +1,7 @@
 from .checkpoint import (load_training_checkpoint, resolve_checkpoint,
                          save_training_checkpoint)
-from .convert import load_checkpoint, save_checkpoint, state_dict_from_jax
+from .convert import (bind_sites, load_checkpoint, save_checkpoint, site_paths,
+                      state_dict_from_jax)
 from .evaluator import device_prefetch, run_eval, save_predictions
 from .hooks import (PRIORITIES, CheckpointHook, Hook, HTTPLoggerHook, LoggerHook,
                     ProfilerHook, SamplerSeedHook)
@@ -11,7 +12,8 @@ from .steps import (EpochStep, TrainState, create_train_state, make_epoch_step,
 from .trainer import Preempted, Trainer, get_root_logger
 
 __all__ = ["load_training_checkpoint", "resolve_checkpoint", "save_training_checkpoint",
-           "load_checkpoint", "save_checkpoint", "state_dict_from_jax",
+           "bind_sites", "load_checkpoint", "save_checkpoint", "site_paths",
+           "state_dict_from_jax",
            "device_prefetch", "run_eval", "save_predictions", "PRIORITIES",
            "CheckpointHook", "Hook", "HTTPLoggerHook", "LoggerHook", "ProfilerHook",
            "SamplerSeedHook", "LogBuffer", "EpochStep", "TrainState",

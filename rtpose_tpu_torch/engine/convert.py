@@ -8,6 +8,9 @@ build_name_map`` maps the other way, so a port checkpoint also loads back
 into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
 kx); GroupNorm ``scale`` -> ``weight``.
 
+``site_paths(model)`` goes the other way for the int8 quant sites: each
+site module of the port -> its flax path, the key of a scales dict.
+
 Checkpoints are ``.pth`` files ``{"meta": {...}, "state_dict": {...}}``
 (training adds ``"optimizer"``), the reference format.
 """
@@ -90,6 +93,83 @@ def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tenso
 
     walk(tree, [], "")
     return out
+
+
+def site_paths(model) -> Dict[Any, str]:
+    """{module: flax path} for every int8 site of a RadarPoseNet: each
+    ``TorchConv3d`` and the ``HRNet3D`` wrapper (whose final-fuse resize
+    sites hang below its path).  The paths are the JAX package's
+    (``"/".join(module.path)``, e.g. ``backbone_m/backbone/stage2_m0/
+    branch0_block0/conv2/TorchConv3d_0``, ``backbone_m/final_conv``,
+    ``head_m/task0/hm_out``): the inverse of ``_segment``, so a scales dict
+    carries across verbatim."""
+    from ..models.layers import GNConv, TorchConv3d
+
+    out: Dict[Any, str] = {}
+
+    def gnconv(m, path):
+        out[m[1]] = f"{path}/TorchConv3d_0"
+
+    def block(m, path):
+        if m.conv1 is not None:
+            out[m.conv1] = f"{path}/conv1"
+        out[m.conv2.conv] = f"{path}/conv2/TorchConv3d_0"
+        out[m.conv3.conv] = f"{path}/conv3/TorchConv3d_0"
+        if m.down_conv is not None:
+            out[m.down_conv] = f"{path}/down_conv"
+
+    def trunk(net, path):
+        block(net.layer1, f"{path}/layer1")
+        for k, sname in enumerate(net.stage_names, start=1):
+            for i, layer in enumerate(getattr(net, f"transition{k}")):
+                if isinstance(layer, GNConv):
+                    gnconv(layer, f"{path}/transition{k}_b{i}")
+                elif layer is not None:
+                    for j, g in enumerate(layer):
+                        gnconv(g, f"{path}/transition{k}_b{i}_j{j}")
+            for mi, hrm in enumerate(getattr(net, sname)):
+                mp = f"{path}/{sname}_m{mi}"
+                for bi, branch in enumerate(hrm.branches):
+                    for ki, blk in enumerate(branch):
+                        block(blk, f"{mp}/branch{bi}_block{ki}")
+                for i, row in enumerate(hrm.fuse_layers or ()):
+                    for j, layer in enumerate(row):
+                        if layer is None:
+                            continue
+                        if j > i:
+                            gnconv(layer, f"{mp}/fuse{i}_{j}")
+                        else:
+                            for ki, g in enumerate(layer):
+                                gnconv(g, f"{mp}/fuse{i}_{j}_k{ki}")
+
+    hr = model.backbone
+    out[hr] = "backbone_m"
+    trunk(hr.backbone, "backbone_m/backbone")
+    if hr.final_conv is not None:
+        out[hr.final_conv] = "backbone_m/final_conv"
+    head = model.pose_head
+    if head.shared_conv is not None:
+        out[head.shared_conv[1]] = "head_m/shared_conv"
+    for t, sep in enumerate(head.tasks):
+        for name in sep.heads:
+            convs = [m for m in getattr(sep, name) if isinstance(m, TorchConv3d)]
+            for i, m in enumerate(convs[:-1]):
+                out[m] = f"head_m/task{t}/{name}_conv{i}"
+            out[convs[-1]] = f"head_m/task{t}/{name}_out"
+    missing = [n for n, m in model.named_modules()
+               if isinstance(m, TorchConv3d) and m not in out]
+    if missing:
+        raise ValueError(f"site_paths: no flax path for {missing}")
+    return out
+
+
+def bind_sites(model) -> Dict[Any, str]:
+    """Name every int8 site of ``model`` (``module.site``) by its flax path;
+    returns ``site_paths(model)``."""
+    paths = site_paths(model)
+    for m, path in paths.items():
+        m.site = path
+    return paths
 
 
 def _to_cpu(obj):

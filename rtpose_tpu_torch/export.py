@@ -1,0 +1,198 @@
+"""Serving export: self-contained predict artifacts via ``torch.export``.
+
+Counterpart of ``rtpose_tpu/export.py``.  The predict path, forward and
+decode (``make_eval_step``'s sparse branch, or the dense decode), is traced
+once with ``torch.export`` and saved as a ``.pt2`` program with the weights
+baked in: the float weights already cast and laid out for the kernels,
+or, with ``int8_scales``, the int8 weights and the activation scales; and
+``final_dtype``.  The batch is static.  The kernels are reached through
+their ``torch.ops.rtpose`` custom ops (``ops/library.py``).
+
+    ep = export_predict(asm, batch_size=8, device="cuda")
+    save_exported("model.pt2", ep)
+    predict = load_predict("model.pt2")   # predict(cube) -> [(kpts, scores, labels)]
+
+JAX's ``platforms`` becomes the one device the artifact was exported for,
+recorded in it; loading it for another device raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import io
+import json
+import zipfile
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from .core.decode import decode_pose_sparse
+from .engine.convert import bind_sites
+from .models.layers import TorchConv3d
+from .ops import quant
+
+META_FILE = "rtpose_meta.json"
+
+
+class Predictor(nn.Module):
+    """``model_input -> (kpts, scores, labels, ...)``, three tensors per task.
+
+    ``model_input`` is the normalized (B, Z, Y, X, C) float32 cube, or with
+    ``preprocess = (norm_start, norm_scale)`` the ROI-cropped raw (B, D, Z,
+    Y, X) cube, preprocessed on the device first.  With ``int8_scales`` the
+    forward runs inside ``quant.int8_mode``, so the int8 program is what
+    runs, or is traced."""
+
+    def __init__(self, model, decode_spec, sparse: bool, preprocess: Optional[tuple] = None,
+                 int8_scales: Optional[dict] = None,
+                 int8_exclude: tuple = quant.DEFAULT_EXCLUDE):
+        super().__init__()
+        self.model = model
+        self.decode_spec = decode_spec
+        self.sparse = sparse
+        self.preprocess = None if preprocess is None else tuple(float(v) for v in preprocess)
+        self.int8_scales = None if int8_scales is None else dict(int8_scales)
+        self.int8_exclude = tuple(int8_exclude)
+
+    def forward(self, x: torch.Tensor):
+        if self.preprocess is not None:
+            _, _, Z, Y, X = x.shape
+            x = torch.ops.rtpose.preprocess(x, [0, Z - 1, 0, Y - 1, 0, X - 1], *self.preprocess)
+        ctx = (contextlib.nullcontext() if self.int8_scales is None
+               else quant.int8_mode(self.int8_scales, exclude=self.int8_exclude))
+        with ctx:
+            if self.sparse:
+                hm, reg_at_peak, peak_ind = self.model.predict_sparse(x)
+                outs = [decode_pose_sparse(hm, reg_at_peak, peak_ind, self.decode_spec)]
+            else:
+                outs = self.model.pose_head.predict(self.model(x), self.decode_spec)
+        return tuple(t for task in outs for t in task)
+
+
+def _grouped(flat):
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+def _serving_model(asm, final_dtype):
+    if final_dtype is not None:
+        from .api import serving_variant
+        asm = serving_variant(asm, final_dtype)
+    bind_sites(asm.model)
+    return asm
+
+
+def make_predict_fn(asm, preprocess: Optional[tuple] = None,
+                    int8_scales: Optional[dict] = None,
+                    int8_exclude: tuple = quant.DEFAULT_EXCLUDE, final_dtype=None):
+    """The serving function ``model_input -> [(kpts, scores, labels)]`` on
+    ``asm.model`` as it stands (its device, its weights), eager.
+
+    ``int8_scales`` (from :func:`calibrate_predict`) runs every
+    non-excluded site in int8; ``final_dtype`` (e.g. ``'bfloat16'``)
+    overrides the head output convs' compute dtype (``api.serving_variant``,
+    a copy of the model)."""
+    asm = _serving_model(asm, final_dtype)
+    pred = Predictor(asm.model, asm.decode_spec, asm.sparse_head, preprocess,
+                     int8_scales, int8_exclude)
+
+    def predict(model_input):
+        with torch.inference_mode():
+            return _grouped(pred(model_input))
+
+    predict.model = asm.model
+    return predict
+
+
+def calibrate_predict(asm, batches, preprocess: Optional[tuple] = None,
+                      exclude: tuple = quant.DEFAULT_EXCLUDE, final_dtype=None,
+                      quantile: Optional[float] = None) -> dict:
+    """Activation scales for the int8 predict path: one forward per batch of
+    model inputs over the same function :func:`make_predict_fn` serves.
+    ``quantile`` switches the statistic from absmax to a clipped quantile of
+    |x| (see ``quant.calibrate``)."""
+    predict = make_predict_fn(asm, preprocess=preprocess, final_dtype=final_dtype)
+    return quant.calibration_scales(predict, batches, exclude=exclude, quantile=quantile)
+
+
+def export_predict(asm, batch_size: int = 1, device: str = "cuda",
+                   preprocess: Optional[tuple] = None, int8_scales: Optional[dict] = None,
+                   int8_exclude: tuple = quant.DEFAULT_EXCLUDE,
+                   final_dtype=None) -> torch.export.ExportedProgram:
+    """Trace the predict path for a static ``batch_size`` on ``device``.
+
+    A copy of ``asm.model`` is moved to the device and run once under
+    ``no_grad`` on a zeros input, which prepares every conv's weights (cast
+    and laid out, or quantized), with the kernels behind their custom ops
+    (``TorchConv3d.use_ops``); ``TorchConv3d.freeze`` then keeps them as
+    buffers, and ``torch.export`` traces the copy under ``no_grad``.  The
+    artifact's metadata (``.rtpose_meta``) records the device, the batch,
+    the input, the int8 sites and ``final_dtype``."""
+    from .api import resolve_device
+
+    dev = resolve_device(device)
+    asm = _serving_model(asm, final_dtype)
+    model = copy.deepcopy(asm.model).to(dev).eval()     # the sites' names come along
+    pred = Predictor(model, asm.decode_spec, asm.sparse_head, preprocess, int8_scales,
+                     int8_exclude)
+    Z, Y, X, C = asm.input_shape_zyxc
+    if preprocess is None:
+        example = asm.example_input(batch_size, dev)
+    else:
+        # raw cubes as the loader ships them under --device_preprocess
+        example = torch.zeros((batch_size, C, Z, Y, X), dtype=torch.float16, device=dev)
+    convs = [m for m in model.modules() if isinstance(m, TorchConv3d)]
+    for m in convs:
+        m._prepared, m._prepared_int8 = None, {}    # what the live model kept
+        m.use_ops = True
+    with torch.no_grad():
+        pred(example)
+        for m in convs:
+            m.freeze()
+        ep = torch.export.export(pred, (example,), strict=False)
+    # the saved artifact would carry the zeros input (168 MB at B=8 on the flagship)
+    ep.example_inputs = None
+    ep.rtpose_meta = dict(
+        device=dev.type, batch_size=batch_size, input_shape=list(example.shape),
+        input_dtype=str(example.dtype).replace("torch.", ""),
+        preprocess=None if preprocess is None else [float(v) for v in preprocess],
+        int8_sites=None if int8_scales is None else len(int8_scales),
+        final_dtype=None if final_dtype is None else str(final_dtype).replace("torch.", ""))
+    return ep
+
+
+def save_exported(path: str, ep: torch.export.ExportedProgram) -> None:
+    """Write the artifact (``torch.export.save``, metadata beside it)."""
+    torch.export.save(ep, path, extra_files={META_FILE: json.dumps(ep.rtpose_meta)})
+
+
+def load_predict(path_or_bytes, device: Optional[str] = None):
+    """Load an artifact into ``predict(model_input) -> [(kpts, scores,
+    labels)]``.  Needs only ``torch`` and the port's op library, which
+    ``import rtpose_tpu_torch.ops`` registers (imported here).  ``device``
+    defaults to the artifact's own; another device raises, as does a CUDA
+    artifact where no card is found.  ``predict.meta`` holds the metadata
+    (``batch_size``, ``input_shape``, ``device``, ...)."""
+    from . import ops  # noqa: F401  registers torch.ops.rtpose
+
+    data = bytes(path_or_bytes) if isinstance(path_or_bytes, (bytes, bytearray)) \
+        else open(path_or_bytes, "rb").read()
+    # the metadata first (a .pt2 is a zip archive): refuse before deserializing
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        names = [n for n in z.namelist() if n.split("/")[-2:] == ["extra", META_FILE]]
+        if not names:
+            raise ValueError(f"not a serving artifact of this package: no {META_FILE}")
+        meta = json.loads(z.read(names[0]))
+    if device is not None and torch.device(device).type != meta["device"]:
+        raise ValueError(f"artifact exported for {meta['device']}, asked to load on {device}")
+    if meta["device"] == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("artifact exported for cuda: no CUDA device found")
+    module = torch.export.load(io.BytesIO(data)).module()
+
+    def predict(model_input):
+        with torch.no_grad():
+            return _grouped(module(model_input))
+
+    predict.meta = meta
+    return predict

@@ -21,7 +21,8 @@ from typing import Any, Dict, List
 import torch
 import torch.nn as nn
 
-from ..ops.interpolate import resize_trilinear_align_corners
+from ..ops import quant
+from ..ops.interpolate import resize_trilinear_align_corners, resize_trilinear_int8
 from ..registry import BACKBONES
 from .layers import GNConv, ResNetBlock, TorchConv3d, canonical_dtype
 
@@ -187,6 +188,11 @@ class HighResolution3DNet(nn.Module):
         return y_list
 
 
+# the JAX package folds X by 4 when every branch's X (X / 8 at the
+# coarsest) stays divisible by 4 (``rtpose_tpu/models/hrnet3d.py:255``)
+FOLD_X = 32
+
+
 @BACKBONES.register_module
 class HRNet3D(nn.Module):
     """Backbone wrapper with the final multi-branch fuse (hrnet3d.py:8-56).
@@ -212,15 +218,32 @@ class HRNet3D(nn.Module):
         cin = top_ch if final_fuse == "top" else sum(last["num_channels"])
         self.final_conv = (TorchConv3d(cin, final_conv_out, kernel=1, dtype=self.dtype)
                            if final_conv_in != final_conv_out else None)
+        self.site = None     # the flax path of the module (engine.convert.bind_sites)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused feature map.  Under a quant context the final-fuse
+        resizes (sites ``<site>/final_fuse{i}_resize``) and, for
+        'conat_conv', ``final_conv`` are int8 sites only where the JAX
+        package folds X, that is when X is divisible by 32
+        (``rtpose_tpu/models/hrnet3d.py:255, 290-293, 317-319``); otherwise
+        they run float, uncalibrated, as there."""
         if self.dtype is not None:
             x = x.to(self.dtype)
+        folded = x.shape[3] % FOLD_X == 0
         feats = self.backbone(x)
         top = feats[0]
         if self.final_fuse == "top":
             return top if self.final_conv is None else self.final_conv(top)
-        ups = [resize_trilinear_align_corners(f.to(top.dtype), top.shape[1:4])
-               for f in feats[1:]]
+        quantized = folded and quant.current() is not None
+        if quantized and self.site is None:
+            raise RuntimeError("HRNet3D under a quant context has no site: "
+                               "engine.convert.bind_sites(model) names them")
+        ups = []
+        for i, f in enumerate(feats[1:]):
+            f = f.to(top.dtype)
+            scale = (quant.consult(f"{self.site}/final_fuse{i + 1}_resize", f)
+                     if quantized else None)
+            ups.append(resize_trilinear_align_corners(f, top.shape[1:4]) if scale is None
+                       else resize_trilinear_int8(f, top.shape[1:4], scale))
         out = torch.cat([top, *ups], dim=-1)
-        return out if self.final_conv is None else self.final_conv(out)
+        return out if self.final_conv is None else self.final_conv(out, quantize=folded)

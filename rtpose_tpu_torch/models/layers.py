@@ -19,6 +19,14 @@ so ``state_dict`` keys match ``rtpose_tpu/engine/torch_import.py``.
   again for grad-input.  Under ``no_grad`` / ``inference_mode`` the cast
   (and, for the kernel, re-laid) weights are kept on the module between
   calls.
+  Its ``site`` (the JAX package's flax path, set by
+  ``engine.convert.bind_sites``) keys it in the int8 quant context
+  (``ops/quant.py``): under ``calibrate`` it records its input statistic
+  and runs float; under ``int8_mode``, with a scale for its site, it runs
+  ``quant.conv3d_int8``.  ``use_ops`` sends the kernels through their
+  ``torch.ops.rtpose`` custom ops and ``freeze`` turns the kept weights
+  into buffers, so ``torch.export`` can trace the module (the serving
+  export).
 * ``GroupNorm8`` — float32 statistics, eps 1e-5, one group when C < 8,
   output cast back to the input dtype.
 * ``SingleConv`` (order strings g/c/r/l/e), ``ResNetBlock``, ``GNConv``.
@@ -33,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import conv_k3
+from ..ops import conv_k3, quant
 
 
 def canonical_dtype(dtype) -> Optional[torch.dtype]:
@@ -65,39 +73,87 @@ class TorchConv3d(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self._prepared = None
+        self.site: Optional[str] = None
+        self._prepared = None       # (key, parameter aliases, prepared tensors)
+        self._prepared_int8 = {}    # activation scale -> the same, int8 weights
+        self._frozen = None         # after ``freeze``: slot -> buffer names
+        self.use_ops = False        # launch the kernels through torch.ops.rtpose
 
-    def _weights(self, x: torch.Tensor, prepare):
-        """``prepare(weight, bias)`` for ``x``.  With grad mode off the result
+    def _weights(self, x: torch.Tensor, prepare, scale: Optional[float] = None):
+        """``prepare(weight, bias)`` (a tuple of tensors or None) for ``x``
+        (and, int8, the activation ``scale``).  With grad mode off the result
         is kept and reused until a parameter is replaced or changed in place
         (``.to()``, ``load_state_dict``, an optimizer step): the key holds
         each parameter's address and version counter, and the kept
-        ``detach()`` aliases keep those addresses from being reused."""
+        ``detach()`` aliases keep those addresses from being reused.  A
+        frozen module returns its buffers."""
+        if self._frozen is not None:
+            if scale not in self._frozen:
+                raise RuntimeError(f"frozen TorchConv3d {self.site}: no weights kept for "
+                                   f"{'float' if scale is None else f'int8 scale {scale}'}")
+            return tuple(None if n is None else getattr(self, n) for n in self._frozen[scale])
         if torch.is_grad_enabled():
             return prepare(self.weight, self.bias)
         params = [p for p in (self.weight, self.bias) if p is not None]
         key = (x.dtype, x.device, *((p.data_ptr(), p._version) for p in params))
-        if self._prepared is None or self._prepared[0] != key:
-            self._prepared = (key, [p.detach() for p in params],
-                              prepare(self.weight, self.bias))
-        return self._prepared[2]
+        kept = self._prepared if scale is None else self._prepared_int8.get(scale)
+        if kept is None or kept[0] != key:
+            kept = (key, [p.detach() for p in params], prepare(self.weight, self.bias))
+            if scale is None:
+                self._prepared = kept
+            else:
+                self._prepared_int8[scale] = kept
+        return kept[2]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def freeze(self) -> None:
+        """Keep the weights prepared so far (by a forward under ``no_grad``)
+        as non-persistent buffers and use nothing else: the module no longer
+        follows its parameters.  With ``use_ops`` set before that forward,
+        for tracing with ``torch.export``."""
+        slots = dict(self._prepared_int8)
+        if self._prepared is not None:
+            slots[None] = self._prepared
+        self._frozen = {}
+        for i, (scale, (_, _, value)) in enumerate(slots.items()):
+            names = []
+            for j, t in enumerate(value):
+                names.append(None if t is None else f"_kept{i}_{j}")
+                if t is not None:
+                    self.register_buffer(names[-1], t.detach().clone(), persistent=False)
+            self._frozen[scale] = names
+
+    def forward(self, x: torch.Tensor, quantize: bool = True) -> torch.Tensor:
+        """``quantize=False``: the float conv, whatever the quant context."""
         if self.dtype is not None:
             x = x.to(self.dtype)
+        if quantize and quant.current() is not None:
+            if self.site is None:
+                raise RuntimeError("TorchConv3d under a quant context has no site: "
+                                   "engine.convert.bind_sites(model) names them")
+            scale = quant.consult(self.site, x)
+            if scale is not None:
+                wq, qscale, b, wk = self._weights(
+                    x, lambda w, b: quant.prepare(w, b, scale, self.stride), scale)
+                return quant.conv3d_int8_prepared(
+                    quant._quantize_act(x, scale), wq, qscale, b, wk, self.stride, x.dtype,
+                    use_op=self.use_ops)
         if conv_k3.supports(x, self.weight, self.stride):
             if torch.is_grad_enabled():
                 # the kernel with its backward: the parameters get gradients
                 return conv_k3.Conv3dK3.apply(x, self.weight, self.bias)
-            if x.device.type == "cuda":
-                return conv_k3.launch(x, *self._weights(x, conv_k3.prepare))
+            if x.device.type == "cuda" or self.use_ops:
+                wr, b = self._weights(x, conv_k3.prepare)
+                if self.use_ops:
+                    return torch.ops.rtpose.conv3d_k3(x, wr, b)
+                return conv_k3.launch(x, wr, b)
         w, b = self._weights(x, lambda w, b: (
             w.to(x.dtype), None if b is None else b.to(x.dtype)))
         return conv3d(x, w, b, self.stride)
 
 
 class GroupNorm8(nn.Module):
-    """GroupNorm with float32 statistics and the input dtype's output."""
+    """GroupNorm with float32 (float64 for a float64 input) statistics and the
+    input dtype's output."""
 
     def __init__(self, channels: int, num_groups: int = 8, eps: float = 1e-5):
         super().__init__()
@@ -108,11 +164,12 @@ class GroupNorm8(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[0], x.shape[-1]
-        xg = x.float().reshape(B, -1, self.groups, C // self.groups)
+        dt = torch.promote_types(x.dtype, torch.float32)   # float64 stays float64
+        xg = x.to(dt).reshape(B, -1, self.groups, C // self.groups)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
         out = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (out * self.weight.float() + self.bias.float()).to(x.dtype)
+        return (out * self.weight.to(dt) + self.bias.to(dt)).to(x.dtype)
 
 
 class SingleConv(nn.Sequential):

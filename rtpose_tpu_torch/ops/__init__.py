@@ -1,6 +1,8 @@
-"""Hand-written CUDA kernels and their plain PyTorch versions."""
+"""Hand-written CUDA kernels and their plain PyTorch versions.  Importing
+this package registers the kernels as ``torch.ops.rtpose`` custom ops
+(``ops/library.py``), which a loaded serving artifact needs."""
 
-from . import conv_k3, preprocess
+from . import conv_k3, conv_k3_int8, library, preprocess
 
 
 def launch_counts() -> dict:
@@ -8,7 +10,8 @@ def launch_counts() -> dict:
     add to them, one per launch, so the replays of a captured CUDA graph,
     which pass no wrapper, are not in them."""
     return {"preprocess": preprocess.launches, "preprocess_single": preprocess.launches_single,
-            "conv3d_k3": conv_k3.launches, "conv3d_k3_bwd": conv_k3.launches_bwd}
+            "conv3d_k3": conv_k3.launches, "conv3d_k3_bwd": conv_k3.launches_bwd,
+            "conv3d_k3_int8": conv_k3_int8.launches}
 
 
 def reset_launch_counts() -> None:
@@ -16,3 +19,4 @@ def reset_launch_counts() -> None:
     preprocess.launches_single = 0
     conv_k3.launches = 0
     conv_k3.launches_bwd = 0
+    conv_k3_int8.launches = 0

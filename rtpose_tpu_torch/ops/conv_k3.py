@@ -76,6 +76,11 @@ def prepare(w: torch.Tensor, bias: Optional[torch.Tensor] = None
     return wr.contiguous(), None if bias is None else bias.detach().float().contiguous()
 
 
+def unprepare(wr: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``prepare`` on the weights: (9, 4, 3, 32, 8) ->
+    (Co, Ci, 3, 3, 3), in ``wr``'s dtype."""
+    return wr.reshape(3, 3, 4, 3, C, 8).permute(4, 2, 5, 3, 0, 1).reshape(C, C, 3, 3, 3)
+
 
 def flip_transpose(w: torch.Tensor) -> torch.Tensor:
     """Torch-layout weights of the grad-input conv: the three taps flipped,

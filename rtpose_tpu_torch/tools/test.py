@@ -5,6 +5,8 @@ Same CLI as ``tools/test.py`` plus ``--device``::
     python -m rtpose_tpu_torch.tools.test CONFIG --checkpoint CKPT.pth \
         [--work_dir DIR] [--testset] [--speed_test] [--device_preprocess] \
         [--final_dtype {bfloat16,float32}] [--profile] [--device {cuda,cpu}]
+    python -m rtpose_tpu_torch.tools.test CONFIG --exported model.pt2 \
+        [--testset] [--speed_test] [--device {cuda,cpu}]
 
 ``--checkpoint`` is a reference-format ``.pth`` (``{"meta", "state_dict"}``,
 as ``rtpose_tpu_torch.tools.train`` writes them), or a directory whose
@@ -13,7 +15,10 @@ Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
 ``<ckpt>_seq_results_{split}.json`` and prints ``Evaluation MPJPE: ...``;
 ``--speed_test`` runs batch 1 and prints ``Total time per frame``;
 ``--profile`` writes a ``torch.profiler`` Chrome trace of the whole eval to
-``<work_dir>/profile/trace.json``.
+``<work_dir>/profile/trace.json``.  ``--exported`` evaluates a serving
+artifact (``rtpose_tpu_torch.tools.export``) instead of the live model: the
+weights, the int8 program and ``final_dtype`` come baked in, the batch size
+is the artifact's, and the outputs are named after the artifact file.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Test a detector (PyTorch port)")
     p.add_argument("config", help="config file path")
     p.add_argument("--work_dir", help="output dir")
-    p.add_argument("--checkpoint", required=True,
-                   help="checkpoint .pth file, or a work_dir / checkpoints dir with 'latest'")
+    p.add_argument("--checkpoint",
+                   help="checkpoint .pth file, or a work_dir / checkpoints dir with "
+                        "'latest'; required unless --exported (artifacts bake their weights)")
     p.add_argument("--speed_test", action="store_true")
     p.add_argument("--testset", action="store_true")
     p.add_argument("--device_preprocess", action="store_true",
@@ -42,6 +48,9 @@ def parse_args(argv=None):
                         "<work_dir>/profile/trace.json")
     p.add_argument("--final_dtype", default=None, choices=("bfloat16", "float32"),
                    help="override the head OUTPUT convs' compute dtype")
+    p.add_argument("--exported", default=None, metavar="ARTIFACT",
+                   help="evaluate a serving artifact (rtpose_tpu_torch.tools.export) "
+                        "instead of the live model")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="run on the card (default) or the CPU")
     return p.parse_args(argv)
@@ -60,19 +69,40 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("rtpose_tpu_torch")
+    if not args.checkpoint and not args.exported:
+        raise SystemExit("one of --checkpoint or --exported is required")
+    if args.exported and args.final_dtype:
+        raise SystemExit("--final_dtype applies to the live model; exported artifacts "
+                         "bake their own (tools/export.py --final_dtype)")
+    if args.exported and args.device_preprocess:
+        raise SystemExit("--exported artifacts bake the normalized-input predict path; "
+                         "--device_preprocess (raw cubes) would feed them un-normalized "
+                         "data — drop one of the flags")
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
-    ckpt_path = resolve_checkpoint(args.checkpoint)
-    work_dir = args.work_dir or os.path.dirname(ckpt_path)
+    ckpt_path = resolve_checkpoint(args.checkpoint) if args.checkpoint else None
+    work_dir = args.work_dir or os.path.dirname(os.path.abspath(ckpt_path or args.exported))
     asm = assemble(cfg)
-    ckpt = load_checkpoint(ckpt_path)
-    asm.model.load_state_dict(ckpt["state_dict"])
-    if args.final_dtype:
-        asm = serving_variant(asm, args.final_dtype)
-        logger.info(f"head output convs overridden to {args.final_dtype}")
-    model = asm.model.to(device).eval()
-    logger.info("Model parameter count: "
-                f"{sum(p.numel() for p in model.parameters())}")
+    if args.exported:
+        from rtpose_tpu_torch.export import load_predict
+        predict = load_predict(args.exported, device=device.type)
+        batch_size = int(predict.meta["batch_size"])
+        logger.info(f"serving artifact: device={predict.meta['device']}, batch={batch_size}, "
+                    f"int8 sites={predict.meta['int8_sites']}, "
+                    f"final_dtype={predict.meta['final_dtype']}")
+        if args.speed_test and batch_size != 1:
+            logger.warning(f"--speed_test with --exported times the artifact's baked batch "
+                           f"size ({batch_size}), NOT the reference's batch-1 protocol — "
+                           f"export with --batch_size 1 for comparable numbers")
+    else:
+        asm.model.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])
+        if args.final_dtype:
+            asm = serving_variant(asm, args.final_dtype)
+            logger.info(f"head output convs overridden to {args.final_dtype}")
+        model = asm.model.to(device).eval()
+        logger.info("Model parameter count: "
+                    f"{sum(p.numel() for p in model.parameters())}")
+        batch_size = 1 if args.speed_test else int(cfg.data["samples_per_gpu"])
 
     split = "test" if args.testset else "val"
     print("Use Test Set" if args.testset else "Use Val Set")
@@ -80,11 +110,14 @@ def main(argv=None) -> dict:
                                      device_preprocess=args.device_preprocess)
     preprocess = ((dataset.norm_start, dataset.norm_scale)
                   if dataset.device_preprocess else None)
-    batch_size = 1 if args.speed_test else int(cfg.data["samples_per_gpu"])
     loader = BatchLoader(dataset, batch_size=batch_size,
                          num_workers=int(cfg.data.get("workers_per_gpu", 0)))
-    eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
-                               preprocess=preprocess)
+    if args.exported:
+        def eval_step(batch):
+            return predict(batch["rdr_tensor"])
+    else:
+        eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
+                                   preprocess=preprocess)
     prof = start_trace(device) if args.profile else None
     try:
         detections, sec_per_frame = run_eval(
@@ -98,7 +131,8 @@ def main(argv=None) -> dict:
         print(f"\n Total time per frame: {sec_per_frame}")
 
     os.makedirs(work_dir, exist_ok=True)
-    ckpt_name = os.path.basename(ckpt_path).split(".")[0]
+    # an artifact's outputs are named after the artifact file
+    ckpt_name = os.path.basename(ckpt_path or args.exported).split(".")[0]
     tag = "test" if args.testset else "train"
     save_predictions(detections, work_dir, ckpt_name, tag)
     result_dict, _ = dataset.evaluation(copy.deepcopy(detections),

@@ -5,7 +5,8 @@ JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Tolerances: preprocess, 1e-6 relative (the same float32 ops in the same
+Tolerances: the int8 conv kernel, none (bit-equal to its plain version);
+preprocess, 1e-6 relative (the same float32 ops in the same
 order); conv and its grad-input, one bf16 ulp (2^-7 relative) plus 2e-3 of
 the output range (float32 sums in two orders, each rounded once to bf16);
 grad-weight, the library's bf16 weight-gradient against the float32 one on
@@ -142,7 +143,7 @@ def test_conv_backward_matches_plain(dev, shape, with_bias):
     out.backward(go)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 1,
-                                   "conv3d_k3_bwd": 1}
+                                   "conv3d_k3_bwd": 1, "conv3d_k3_int8": 0}
     want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
     torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want_gx.float().abs().max().item())
@@ -300,3 +301,115 @@ def test_captured_step_replayed_twice_equals_two_eager_steps(dev):
     state_g, ms = epoch_fn(state_g, data, idx)
     assert epoch_fn.replays == 4 and int(state_g.step) == 4 and torch.isfinite(ms["loss"]).all()
     assert ops.launch_counts() == warm_and_capture
+
+
+# ------------------------------------------------------------------ int8 K3
+
+def _int8_case(dev, shape, with_bias, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, (*shape, 32), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (32, 32, 3, 3, 3), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((32,), generator=g, device=dev) * 1e-3
+    b = torch.randn((32,), generator=g, device=dev) if with_bias else None
+    return xq, wq, scale, b
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,with_bias", [
+    ((1, 16, 64, 160), False), ((2, 5, 13, 37), True), ((1, 1, 1, 1), True),
+    ((3, 3, 17, 15), False),
+    ((1, 70000, 2, 3), True)])     # B * Z above the 65535 a grid dimension holds
+def test_int8_kernel_bit_equal_to_plain(dev, shape, with_bias, out_dtype):
+    """The int8 K3 kernel and its plain version: the same exact integer sums
+    and the same float32 epilogue rounded once, so equal bit for bit."""
+    from rtpose_tpu_torch.ops import conv_k3_int8
+    xq, wq, scale, b = _int8_case(dev, shape, with_bias)
+    ops.reset_launch_counts()
+    got = conv_k3_int8.conv3d_k3_int8(xq, wq, scale, b, out_dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conv3d_k3_int8"] == 1
+    assert got.dtype == out_dtype
+    assert torch.equal(got, conv_k3_int8.conv3d_k3_int8_reference(xq, wq, scale, b, out_dtype))
+
+
+def test_int8_kernel_deterministic_and_equal_to_stock_route(dev):
+    from rtpose_tpu_torch.ops import conv_k3_int8, quant
+    xq, wq, scale, b = _int8_case(dev, (2, 16, 64, 160), True, seed=7)
+    a = conv_k3_int8.conv3d_k3_int8(xq, wq, scale, b)
+    assert torch.equal(a, conv_k3_int8.conv3d_k3_int8(xq, wq, scale, b))
+    stock = quant.epilogue(quant.int8_conv_acc(xq, wq, 1), scale, b, torch.bfloat16)
+    assert torch.equal(a, stock)
+    with pytest.raises(ValueError):
+        conv_k3_int8.conv3d_k3_int8(xq.float(), wq, scale, b)        # not int8
+    with pytest.raises(ValueError):
+        conv_k3_int8.conv3d_k3_int8(xq, wq, scale.double(), b)       # scale not float32
+
+
+def test_int8_conv_layer_dispatch(dev):
+    """``TorchConv3d`` under ``int8_mode`` on the card: the K3 shape launches
+    the int8 kernel, a stride-2 conv takes ``torch._int_mm``; both equal the
+    CPU plain route."""
+    from rtpose_tpu_torch.models.layers import TorchConv3d
+    from rtpose_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(8)
+    for cin, stride, launched in ((32, 1, 1), (32, 2, 0)):
+        m = TorchConv3d(cin, 32, stride=stride, bias=True, dtype="bfloat16")
+        with torch.no_grad():
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.05)
+            m.bias.copy_(torch.randn((32,), generator=g))
+        m.site = "c"
+        x = torch.randn((2, 4, 16, 24, cin), generator=g)
+        with torch.inference_mode(), quant.int8_mode({"c": 0.02}):
+            want = m(x)
+        m.to(dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode(), quant.int8_mode({"c": 0.02}):
+            got = m(x.to(dev))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["conv3d_k3_int8"] == launched
+        assert torch.equal(got.cpu(), want)
+
+
+def test_custom_ops_export_on_the_card(dev):
+    """The serving export's ops on the card: a bf16 and an int8 block traced
+    with ``torch.export`` call ``rtpose::conv3d_k3`` / ``conv3d_k3_int8``
+    (their CUDA implementations launch the kernels and count), and the
+    traced program equals the eager module; ``rtpose::preprocess`` equals
+    its plain version."""
+    import copy
+    from rtpose_tpu_torch.models.layers import ResNetBlock, TorchConv3d
+    from rtpose_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(9)
+    block = ResNetBlock(32, 32, dtype="bfloat16")
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05 + (1.0 if p.dim() == 1 else 0.0))
+    block.conv2.conv.site, block.conv3.conv.site = "c2", "c3"
+    block = block.to(dev).eval()
+    x = torch.randn((2, 8, 32, 80, 32), generator=g).to(dev)
+    for scales, op, counter in ((None, "rtpose.conv3d_k3.default", "conv3d_k3"),
+                                ({"c2": 0.03, "c3": 0.05}, "rtpose.conv3d_k3_int8.default",
+                                 "conv3d_k3_int8")):
+        m = copy.deepcopy(block)
+        convs = [c for c in m.modules() if isinstance(c, TorchConv3d)]
+        ctx = quant.int8_mode(scales) if scales else torch.no_grad()
+        with torch.no_grad(), ctx:
+            eager = copy.deepcopy(m)(x)
+            for c in convs:
+                c.use_ops = True
+            m(x)
+            for c in convs:
+                c.freeze()
+            ep = torch.export.export(m, (x,), strict=False)
+        targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+        assert targets.count(op) == 2
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            traced = ep.module()(x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[counter] == 2
+        assert torch.equal(traced, eager)
+    raw = torch.rand((2, 32, 16, 64, 160), generator=g).half().to(dev)
+    roi = [0, 15, 0, 63, 0, 159]
+    assert torch.equal(torch.ops.rtpose.preprocess(raw, roi, 0.0, 10.0),
+                       preprocess.preprocess_reference(raw, roi, 0.0, 10.0))
