@@ -162,6 +162,7 @@ TRAIN_EPOCHS = 2    # --stop_epoch of the training run
 K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
+TRACE_EDGE_S = 0.1  # idle card between a traced epoch and its trace window's edges
 
 
 def fail(msg: str) -> None:
@@ -511,10 +512,11 @@ def int8_row(ms, plain_ms, stock_ms, bf16_ms, xq, **extra):
 
 def phase_conv_int8(dev):
     """The int8 K3 kernel against its plain version, bit for bit, at the main
-    path's four shapes (bf16 and float32 out), a ragged shape with bias and
-    B * Z above 65535; two launches bit-identical; device times beside the
-    plain version, the stock route (int8 im2col + ``torch._int_mm``) and the
-    bf16 K3 kernel at the four shapes."""
+    path's four shapes (bf16 and float32 out), ragged shapes with bias (one
+    of them with small Y and X) and B * Z above 65535; two launches
+    bit-identical; device times beside the plain version, the stock route
+    (int8 im2col + ``torch._int_mm``) and the bf16 K3 kernel at the four
+    shapes, with the launch plan chosen at each."""
     import torch
     from rtpose_tpu_torch.ops import conv_k3 as ck
     from rtpose_tpu_torch.ops import conv_k3_int8 as ck8
@@ -530,6 +532,7 @@ def phase_conv_int8(dev):
     bias = torch.randn((32,), generator=gen, device=dev)
     checked = []
     cases = [(shape, None) for shape in K3_SHAPES] + [((2, 5, 13, 37), bias),
+                                                     ((2, 3, 2, 5), bias),
                                                      ((1, 70000, 2, 3), bias)]
     for shape, b in cases:
         xq = rand_q((*shape, 32))
@@ -556,12 +559,13 @@ def phase_conv_int8(dev):
                      device_ms(lambda: quant.epilogue(quant.int8_conv_acc(xq, wq, 1), scale,
                                                       None, torch.bfloat16)),
                      device_ms(lambda: ck.launch(xb, wr)), xq,
-                     wrapper_ms=wrapper_ms(lambda: ck8.conv3d_k3_int8(xq, wq, scale)))
+                     wrapper_ms=wrapper_ms(lambda: ck8.conv3d_k3_int8(xq, wq, scale)),
+                     plan=ck8.plan(*shape, ck8._sm_count(dev.index or 0))._asdict())
         rows[str(shape)] = r
         print(f"[int8 conv] {shape}: {r['ms']:.4f} ms ({r['tops']:.1f} TOPS, "
               f"{100 * r['share_of_bound']:.1f} % of bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, stock im2col + _int_mm "
-              f"{r['stock_ms']:.4f} ms, bf16 K3 {r['k3_bf16_ms']:.4f} ms")
+              f"{r['stock_ms']:.4f} ms, bf16 K3 {r['k3_bf16_ms']:.4f} ms; plan {r['plan']}")
     main = rows[str(K3_SHAPES[0])]
     return dict(name="conv3d_k3_int8", route="cuda", source="rtpose_tpu_torch/csrc/conv_k3_int8.cu",
                 replaces="none: not a TPU kernel (the JAX package runs this int8 conv on XLA, "
@@ -1349,20 +1353,27 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
     cmp = compare_runs("fused vs device cache per step", run, cached_run, p0, noise_dist)
     # two more epochs, replays only, under the profiler: the first is its
     # warm-up and is not recorded (a trace of one cold epoch once held 335 of
-    # the 336 K3 launches), the second is the traced epoch
+    # the 336 K3 launches), the second is the traced epoch.  The profiler
+    # keeps only device activity that lies inside its window on the host's
+    # clock, and an epoch that ran right up to the window's edges once lost
+    # 4 of its 336 K3 launches: the card idles TRACE_EDGE_S on either side
+    # of the traced epoch.
     loader = trainer.loader
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     recorded = []
     with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+                 on_trace_ready=lambda p: recorded.append((p.key_averages(), p.events()))) as prof:
         for epoch in (TRAIN_EPOCHS, TRAIN_EPOCHS + 1):
             loader.set_epoch(epoch)
             idx = loader.fused_epoch()[0]
+            torch.cuda.synchronize()
+            time.sleep(TRACE_EDGE_S)
             t0 = time.perf_counter()
             _, metrics = es(trainer.state, loader.data, idx)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3 / per_epoch
+            time.sleep(TRACE_EDGE_S)
             prof.step()
     if es.replays != steps + 2 * per_epoch:
         fail(f"fused: the two traced epochs made {es.replays - steps} replays")
@@ -1372,8 +1383,9 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
         fail(f"fused: the traced epoch's losses {metrics['loss'].tolist()}")
     if not recorded:
         fail("the fused trace recorded nothing")
+    averages, events = recorded[0]
     # the step's own range shows on the device too: not an operation
-    dev_ops = [e for e in recorded[0] if e.device_type == torch.autograd.DeviceType.CUDA
+    dev_ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("ProfilerStep")]
     if not dev_ops:
         fail("the fused trace holds no device operation")
@@ -1384,7 +1396,19 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
               "conv3d_k3_kernel": sum(e.count for e in k3)}
     want = {"preprocess_kernel": per_epoch, "conv3d_k3_kernel": 2 * K3_PER_STEP * per_epoch}
     if traced != want:
-        fail(f"fused trace: kernels launched by {per_epoch} replays {traced}, expected {want}")
+        # where they went missing: K3 launches after each preprocess launch,
+        # in the order the card ran them, and the device span in the window
+        kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith("ProfilerStep")),
+                         key=lambda e: e.time_range.start)
+        by_replay = []
+        for e in kernels:
+            if "preprocess_kernel" in e.name or not by_replay:
+                by_replay.append(0)
+            by_replay[-1] += "conv3d_k3_kernel" in e.name
+        fail(f"fused trace: kernels launched by {per_epoch} replays {traced}, expected {want}; "
+             f"K3 launches per replay {by_replay}, {len(kernels)} device operations from "
+             f"{kernels[0].time_range.start} to {kernels[-1].time_range.end} us of the trace")
     print(f"[fused trace] one epoch of {per_epoch} replays: kernels by name {traced} (the "
           f"wrappers counted {ops.launch_counts()}); device busy {busy} ms/step, {n_ops} "
           f"device operations/step, idle share {1 - busy / steady} of the untraced {steady} "

@@ -34,7 +34,7 @@ KERNELS = {
     "conv_k3": ("conv_k3.cu", "rtpose_conv3d_k3",
                 [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "conv_k3_int8": ("conv_k3_int8.cu", "rtpose_conv3d_k3_int8",
-                     [_P] * 5 + [_I] * 6 + [_P]),
+                     [_P] * 5 + [_I] * 11 + [_P]),
 }
 
 _lock = threading.Lock()

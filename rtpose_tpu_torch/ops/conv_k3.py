@@ -106,7 +106,8 @@ class Plan(NamedTuple):
     """A launch of the kernel: output tiles of ``ty`` rows x ``tx`` columns
     (row width ``wp = tx + 2`` with the halo), ``2 * nbw`` 64-row wgmma
     blocks per tile (``nbw`` per consumer warpgroup), a ring of ``stages``
-    input planes of ``positions`` 16-byte positions per 8-channel chunk;
+    input planes of ``positions`` 16-byte positions per channel chunk (8
+    bf16 channels here, 16 int8 in ``conv_k3_int8``);
     ``tiles`` tile-planes (B * ny * nx * Z, z fastest) split into ``grid``
     contiguous ranges, one per block, the busiest of which reads
     ``max_planes`` input planes."""
@@ -137,18 +138,20 @@ def segments(tiles: int, grid: int, Z: int):
             L += zb - za
 
 
-def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
-              ) -> Optional[Tuple[tuple, Plan]]:
+def plan_candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int, *,
+                   fixed_bytes: int, barriers: int, position_bytes: int, plane_cost: float,
+                   stage_cost: float) -> Optional[Tuple[tuple, Plan]]:
     """The plan with output tiles ``tx`` wide and ``2 * nbw`` 64-row blocks
-    (``ty`` as many rows as fit), and its cost key.  The cost, in the time
-    of one 64-row block's products with one input plane: the busiest
-    block's input planes, each ``2 * nbw`` blocks plus ``PLANE_COST`` for
-    its waits and epilogue, and ``STAGE_COST`` per KB of a stage for the
-    prologue that loads the first planes (both fitted to the kernel's
-    device times over these candidates at the flagship shapes on an H100);
-    then the total work, then the widest tile.  None if the rows or the
-    ring (at least ``MIN_STAGES``) and the weights in ``SMEM_LIMIT`` do not
-    fit."""
+    (``ty`` as many rows as fit), and its cost key, for a kernel of this
+    design (this one's and the int8 kernel's): ``fixed_bytes`` of shared
+    memory besides the ring, ``barriers`` mbarriers besides the ring's two
+    per stage, ``position_bytes`` bytes of a stage per position.  The cost,
+    in the time of one 64-row block's products with one input plane: the
+    busiest block's input planes, each ``2 * nbw`` blocks plus
+    ``plane_cost`` for its waits and epilogue, and ``stage_cost`` per KB of
+    a stage for the prologue that loads the first planes; then the total
+    work, then the widest tile.  None if the rows or the ring (at least
+    ``MIN_STAGES``) and the rest in ``SMEM_LIMIT`` do not fit."""
     wp = tx + 2
     rows = 2 * nbw * 64
     if wp > rows or wp > 256:
@@ -156,8 +159,8 @@ def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
     ty = min(rows // wp, Y)
     # the last block's bottom-right tap reads rows + 2 wp + 2 positions
     positions = -(-max((ty + 2) * wp, rows + 2 * wp + 2) // 8) * 8
-    stages = min(MAX_STAGES, (SMEM_LIMIT - WEIGHT_BYTES - 8 * (2 * MAX_STAGES + 3))
-                 // (64 * positions))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed_bytes - 8 * (2 * MAX_STAGES + barriers))
+                 // (position_bytes * positions))
     if stages < MIN_STAGES:
         return None
     nx, ny = -(-X // tx), -(-Y // ty)
@@ -167,19 +170,34 @@ def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
     for blk, _, za, zb in segments(tiles, grid, Z):
         per_block[blk] += min(zb, Z - 1) - max(za - 1, 0) + 1   # input planes za - 1 .. zb
     max_planes = max(per_block)
-    smem = WEIGHT_BYTES + stages * 64 * positions + 8 * (2 * stages + 3)
-    cost = max_planes * (2 * nbw + PLANE_COST) + STAGE_COST * positions * 64 / 1024
+    smem = fixed_bytes + stages * position_bytes * positions + 8 * (2 * stages + barriers)
+    cost = max_planes * (2 * nbw + plane_cost) + stage_cost * positions * position_bytes / 1024
     return (cost, tiles * nbw, -tx), Plan(tx, ty, wp, nbw, positions, stages, nx, ny, tiles,
                                           grid, smem, max_planes)
+
+
+def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
+              ) -> Optional[Tuple[tuple, Plan]]:
+    """``plan_candidate`` for this kernel: the weights in shared memory,
+    four 8-channel chunk planes a stage, ``PLANE_COST`` and ``STAGE_COST``
+    fitted to the kernel's device times over these candidates at the
+    flagship shapes on an H100 (``tools.k3_plans``)."""
+    return plan_candidate(B, Z, Y, X, sms, tx, nbw, fixed_bytes=WEIGHT_BYTES, barriers=3,
+                          position_bytes=64, plane_cost=PLANE_COST, stage_cost=STAGE_COST)
+
+
+def candidates(B: int, Z: int, Y: int, X: int, sms: int, candidate=candidate):
+    """Every ``candidate`` that fits: tile widths ``X_TILES`` below X and X
+    itself, one or two blocks per warpgroup, as (cost key, plan)."""
+    return [c for tx in sorted({t for t in X_TILES if t < X} | {X}) for nbw in (1, 2)
+            if (c := candidate(B, Z, Y, X, sms, tx, nbw)) is not None]
 
 
 @functools.lru_cache(maxsize=256)
 def plan(B: int, Z: int, Y: int, X: int, sms: int) -> Plan:
     """The launch plan for a (B, Z, Y, X, 32) input on a card of ``sms``
-    SMs: the cheapest ``candidate`` over tile widths ``X_TILES`` and X
-    itself and one or two blocks per warpgroup."""
-    found = [c for tx in {t for t in X_TILES if t < X} | {X} for nbw in (1, 2)
-             if (c := candidate(B, Z, Y, X, sms, tx, nbw)) is not None]
+    SMs: the cheapest of ``candidates``."""
+    found = candidates(B, Z, Y, X, sms)
     if not found:
         raise ValueError(f"conv3d_k3: no launch plan for {(B, Z, Y, X)}")
     return min(found)[1]

@@ -5,19 +5,35 @@ int8 convolutions (``rtpose_tpu/ops/quant.py::conv3d_int8``), and PyTorch
 has no int8 ``conv3d`` on CUDA.  The stock route (an int8 im2col and
 ``torch._int_mm``) writes and reads back a 27x im2col, so the K3 shape,
 which carries most of the flagship's operations, gets this hand kernel,
-``csrc/conv_k3_int8.cu``: int8 ``mma.sync`` over a shared-memory halo tile
-with the weights resident in shared memory, an exact int32 accumulator and
-the float32 epilogue ``acc * scale[co] (+ bias[co])`` of
-``ops/quant.py``, rounded once to the output dtype.  The kernel equals its
-plain version bit for bit.
+``csrc/conv_k3_int8.cu``: an exact int32 accumulator and the float32
+epilogue ``acc * scale[co] (+ bias[co])`` of ``ops/quant.py``, rounded once
+to the output dtype.  The kernel equals its plain version bit for bit.
+
+What bounds it on an H100: operations and bytes about equally (at
+(1, 16, 64, 160) 4.6 us of int8 operations at 1979 TOPS and 4.7 us of
+bytes at 3.35 TB/s, the bf16 output two thirds of them).  So its design is
+the bf16 K3 kernel's (``ops/conv_k3.py``) in int8: a persistent grid
+walking z-fastest tile-planes, so each input plane of a column is loaded
+once; the weights resident in shared memory; a producer warp streaming
+input planes through a TMA ring whose out-of-bounds zero fill is the
+padding; int8 ``wgmma`` m64n96k32 with dz folded into N, each plane adding
+into three running output sums, which rotate through the weights' dz
+slices instead of moving between registers; two consumer warpgroups
+taking turns, so that one's epilogue runs under the other's products; and
+an N order of the weights (``N_CHANNEL``) that leaves each thread 8
+contiguous output channels, so that every store is 16 bytes of a whole
+line.  The source's notes give the details.
 
 * ``conv3d_k3_int8`` — the wrapper on int8 torch-layout weights.  A CUDA
   tensor launches the kernel (or raises on what it does not take); a CPU
   tensor takes the plain version.
 * ``prepare`` + ``launch`` — the same split in two: ``prepare`` re-lays
-  (32, 32, 3, 3, 3) int8 weights to the kernel's (27, 32, 32)
-  [kz * 9 + ky * 3 + kx][co][ci] int8, once; ``launch`` runs the kernel on
-  them.  ``unprepare`` is its inverse.
+  (32, 32, 3, 3, 3) int8 weights to the kernel's (9, 2, 3, 32, 16)
+  [dy * 3 + dx][ci // 16][dz][n][ci % 16] int8 (output channels in the
+  ``N_CHANNEL`` order), once; ``launch`` runs the kernel on them.  ``unprepare`` is its inverse.  Both refuse any other
+  shape, so the (27, 32, 32) layout of earlier artifacts is never misread.
+* ``plan`` — the launch plan the kernel runs: tile shape, padded row width,
+  stages of the input ring, shared memory and grid.
 * ``conv3d_k3_int8_reference`` — the plain version: ``F.conv3d`` in float64
   on the int8 values (exact), cast to int32, then the epilogue.
 """
@@ -25,16 +41,22 @@ plain version bit for bit.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import build
+from . import conv_k3
+from .conv_k3 import Plan
 
 C = 32
-TILE = (2, 16, 16)       # output voxels (z, y, x) of one tile of the kernel
-BLOCKS_PER_SM = 2        # 69,120 B of shared memory and 256 threads each
+PREPARED_SHAPE = (9, 2, 3, C, 16)
+# the output channel of each of a dz slice's 32 N columns: the wgmma gives
+# thread t columns 8 g + 2 (t % 4) + e (g = 0..3, e = 0..1), so column
+# 8 g + 2 q + e holds channel 8 q + 2 g + e and each thread ends up with 8
+# contiguous channels of its rows (the permutation is its own inverse)
+N_CHANNEL = tuple(8 * (n // 2 % 4) + 2 * (n // 8) + n % 2 for n in range(C))
 
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0
@@ -47,15 +69,28 @@ def supports_weight(wq: torch.Tensor, stride: int) -> bool:
     return stride == 1 and tuple(wq.shape) == (C, C, 3, 3, 3)
 
 
+def _check_prepared(wk: torch.Tensor) -> None:
+    if tuple(wk.shape) != PREPARED_SHAPE or wk.dtype != torch.int8:
+        raise ValueError(f"conv3d_k3_int8: weights must be prepared {PREPARED_SHAPE} int8 "
+                         f"(ops.conv_k3_int8.prepare), got {tuple(wk.shape)} {wk.dtype}")
+
+
 def prepare(wq: torch.Tensor) -> torch.Tensor:
-    """(Co, Ci, 3, 3, 3) int8 -> the kernel's (27, Co, Ci) int8, taps
-    ``kz * 9 + ky * 3 + kx``."""
-    return wq.detach().to(torch.int8).permute(2, 3, 4, 0, 1).reshape(27, C, C).contiguous()
+    """(Co, Ci, 3, 3, 3) int8 -> the kernel's (9, 2, 3, 32, 16)
+    [dy * 3 + dx][ci // 16][dz][n][ci % 16] int8, row n the weights of
+    output channel ``N_CHANNEL[n]``.  For one tap (dy, dx) and 16 input
+    channels, the 96 rows (dz, n) are the wgmma's N, each 8-row block one
+    128-byte core matrix."""
+    wr = (wq.detach().to(torch.int8).permute(3, 4, 1, 2, 0)    # ky kx ci kz co
+          .reshape(9, 2, 16, 3, C).permute(0, 1, 3, 4, 2))
+    return wr[:, :, :, list(N_CHANNEL)].contiguous()
 
 
 def unprepare(wk: torch.Tensor) -> torch.Tensor:
-    """The inverse of ``prepare``: (27, Co, Ci) -> (Co, Ci, 3, 3, 3)."""
-    return wk.reshape(3, 3, 3, C, C).permute(3, 4, 0, 1, 2).contiguous()
+    """The inverse of ``prepare``: (9, 2, 3, 32, 16) -> (Co, Ci, 3, 3, 3)."""
+    _check_prepared(wk)
+    wr = wk[:, :, :, list(N_CHANNEL)]
+    return wr.reshape(3, 3, 2, 3, C, 16).permute(4, 2, 5, 3, 0, 1).reshape(C, C, 3, 3, 3)
 
 
 def conv3d_k3_int8_reference(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -67,6 +102,41 @@ def conv3d_k3_int8_reference(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Te
     if bias is not None:
         out = out + bias.float()
     return out.to(out_dtype).contiguous()
+
+
+# the weights in the kernel's shared memory: each (tap, c16) chunk held as
+# dz slices 0, 1, 2, 0, 1, so that a rotation of the slices is an offset
+WEIGHT_SMEM = 9 * 2 * 5 * C * 16
+PLANE_COST, STAGE_COST = 0.5, 0.2   # see ``candidate``
+
+
+def candidate(B: int, Z: int, Y: int, X: int, sms: int, tx: int, nbw: int
+              ) -> Optional[Tuple[tuple, Plan]]:
+    """``conv_k3.plan_candidate`` for this kernel: ``WEIGHT_SMEM`` of
+    weights, two 16-channel chunk planes a stage (32 bytes a position), two
+    mbarriers more for the warpgroups' turns, and its own ``PLANE_COST``
+    and ``STAGE_COST`` (in the time of one 64-row block's 9 int8 wgmmas with
+    one input plane, half a bf16 block's), fitted to the kernel's device
+    times over these candidates at the flagship shapes on an H100
+    (``tools.k3_plans --int8``)."""
+    return conv_k3.plan_candidate(B, Z, Y, X, sms, tx, nbw, fixed_bytes=WEIGHT_SMEM, barriers=5,
+                                  position_bytes=32, plane_cost=PLANE_COST,
+                                  stage_cost=STAGE_COST)
+
+
+def candidates(B: int, Z: int, Y: int, X: int, sms: int):
+    """Every ``candidate`` that fits (``conv_k3.candidates``)."""
+    return conv_k3.candidates(B, Z, Y, X, sms, candidate)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, Z: int, Y: int, X: int, sms: int) -> Plan:
+    """The launch plan for a (B, Z, Y, X, 32) input on a card of ``sms``
+    SMs: the cheapest of ``candidates``."""
+    found = candidates(B, Z, Y, X, sms)
+    if not found:
+        raise ValueError(f"conv3d_k3_int8: no launch plan for {(B, Z, Y, X)}")
+    return min(found)[1]
 
 
 def conv3d_k3_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -107,17 +177,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _run(xq, wk, scale, bias, out_dtype) -> torch.Tensor:
+def _run(xq, wk, scale, bias, out_dtype, p: Optional[Plan] = None) -> torch.Tensor:
+    """One launch, on ``plan``'s launch plan unless ``p`` names another
+    (``tools.k3_plans --int8`` times each candidate)."""
+    _check_prepared(wk)
     if (xq.device.type != "cuda" or xq.dtype != torch.int8 or xq.dim() != 5
             or xq.shape[-1] != C):
         raise ValueError(f"conv3d_k3_int8: needs a CUDA (B, Z, Y, X, 32) int8 input, got "
                          f"{tuple(xq.shape)} {xq.dtype} on {xq.device}")
     if not xq.is_contiguous() or xq.data_ptr() % 16:
         raise ValueError("conv3d_k3_int8: input must be contiguous and 16-byte aligned")
-    if (tuple(wk.shape) != (27, C, C) or wk.dtype != torch.int8 or not wk.is_contiguous()
-            or wk.data_ptr() % 16 or wk.device != xq.device):
-        raise ValueError(f"conv3d_k3_int8: weights must be prepared (27, 32, 32) int8 on the "
-                         f"input's device, got {tuple(wk.shape)} {wk.dtype} on {wk.device}")
+    if not wk.is_contiguous() or wk.data_ptr() % 16 or wk.device != xq.device:
+        raise ValueError("conv3d_k3_int8: prepared weights must be contiguous, 16-byte "
+                         "aligned and on the input's device")
     _check_vec("scale", scale, xq.device)
     if bias is not None:
         _check_vec("bias", bias, xq.device)
@@ -127,14 +199,13 @@ def _run(xq, wk, scale, bias, out_dtype) -> torch.Tensor:
     out = torch.empty((B, Z, Y, X, C), dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
-    # a persistent grid: at most BLOCKS_PER_SM blocks per SM walk the tiles
-    tz, ty, tx = TILE
-    tiles = B * -(-Z // tz) * -(-Y // ty) * -(-X // tx)
-    grid = min(tiles, BLOCKS_PER_SM * _sm_count(
-        xq.device.index if xq.device.index is not None else torch.cuda.current_device()))
+    if p is None:
+        p = plan(B, Z, Y, X, _sm_count(xq.device.index if xq.device.index is not None
+                                        else torch.cuda.current_device()))
     rc = build.kernel("conv_k3_int8")(
         xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), _OUT_CODE[out_dtype],
-        B, Z, Y, X, grid, torch.cuda.current_stream(xq.device).cuda_stream)
+        B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid,
+        torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(rc, "conv3d_k3_int8 kernel")
     return out

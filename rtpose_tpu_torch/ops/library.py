@@ -73,4 +73,5 @@ def _(xq, wk, scale, bias, out_dtype):
 
 @conv3d_k3_int8_op.register_fake
 def _(xq, wk, scale, bias, out_dtype):
+    conv_k3_int8._check_prepared(wk)
     return torch.empty_like(xq, dtype=out_dtype)

@@ -317,7 +317,7 @@ def _int8_case(dev, shape, with_bias, seed=6):
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,with_bias", [
     ((1, 16, 64, 160), False), ((2, 5, 13, 37), True), ((1, 1, 1, 1), True),
-    ((3, 3, 17, 15), False),
+    ((3, 3, 17, 15), False), ((2, 3, 2, 5), True), ((1, 4, 1, 200), False),   # small Y / X
     ((1, 70000, 2, 3), True)])     # B * Z above the 65535 a grid dimension holds
 def test_int8_kernel_bit_equal_to_plain(dev, shape, with_bias, out_dtype):
     """The int8 K3 kernel and its plain version: the same exact integer sums
@@ -330,6 +330,25 @@ def test_int8_kernel_bit_equal_to_plain(dev, shape, with_bias, out_dtype):
     assert ops.launch_counts()["conv3d_k3_int8"] == 1
     assert got.dtype == out_dtype
     assert torch.equal(got, conv_k3_int8.conv3d_k3_int8_reference(xq, wq, scale, b, out_dtype))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 64, 160), (2, 5, 13, 37)])
+def test_int8_kernel_every_plan_candidate(dev, shape):
+    """Every tile the launch plan may choose (``candidates``, the chosen one
+    among them) gives the plain version's result bit for bit, bf16 and
+    float32 out."""
+    from rtpose_tpu_torch.ops import conv_k3_int8
+    xq, wq, scale, b = _int8_case(dev, shape, True, seed=9)
+    wk = conv_k3_int8.prepare(wq)
+    sms = conv_k3_int8._sm_count(dev.index or 0)
+    found = conv_k3_int8.candidates(*shape, sms)
+    assert conv_k3_int8.plan(*shape, sms) in [p for _, p in found]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        want = conv_k3_int8.conv3d_k3_int8_reference(xq, wq, scale, b, out_dtype)
+        for _, p in found:
+            got = conv_k3_int8._run(xq, wk, scale, b, out_dtype, p)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), p
 
 
 def test_int8_kernel_deterministic_and_equal_to_stock_route(dev):

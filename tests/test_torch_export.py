@@ -230,7 +230,8 @@ def test_custom_ops_fake_shapes():
         out = torch.ops.rtpose.conv3d_k3(x, torch.empty((9, 4, 3, 32, 8), dtype=torch.bfloat16),
                                          None)
         assert out.shape == x.shape and out.dtype == torch.bfloat16
-        out = torch.ops.rtpose.conv3d_k3_int8(xq, torch.empty((27, 32, 32), dtype=torch.int8),
+        out = torch.ops.rtpose.conv3d_k3_int8(xq, torch.empty((9, 2, 3, 32, 16),
+                                                          dtype=torch.int8),
                                               torch.empty(32), None, torch.float32)
         assert out.shape == xq.shape and out.dtype == torch.float32
         out = torch.ops.rtpose.preprocess(torch.empty((2, 4, 5, 6, 7), dtype=torch.float16),
