@@ -64,12 +64,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
  18. ``tools.train --stream_cache_gb``: one epoch over four chunks, every
      sample once, at most two chunks resident, ms/step;
  19. ``tools.train --device_cache --profile 5``: the Chrome trace exists and
-     holds the CUDA kernels.
+     holds the CUDA kernels;
+ 20. ``_skel_mp2`` (two people a frame) on a root of the port's generator:
+     two training epochs at B=8 with --device_preprocess (1 preprocess, 14
+     conv and 14 grad-input launches a step), one more traced, tools.test on
+     the checkpoint (traced; 30 joints a frame, 14 conv launches a forward),
+     one frame card vs CPU and the multi-peak decode of the same float32
+     outputs on both, a bf16 tools.export artifact against the live model;
+ 21. ``_dcn`` (the deformable head) on the training root: one epoch at B=8
+     (the same counts), one more traced (the deformable gather and its
+     scatter-add backward by kernel), peak device memory, tools.test
+     (traced), one frame card vs CPU;
+ 22. ``_phase`` (complex 64-channel cubes, B=1): one epoch, one more traced,
+     tools.test (traced); no kernel launched (complex cubes opt out of the
+     card preprocess, no conv has the K3 shape);
+ 23. ``_skel480x2`` (RepeatDataset x2) on the training root: one epoch of
+     twice its child's steps.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
 wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
+``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-23), a
 ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
 ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
 ``launches`` is its wrapper's count on its own path (eval for the
@@ -80,7 +96,8 @@ package: its count is read over the eval and training runs and is 0);
 path.  The replays of a fused epoch pass no wrapper, so the fused path's
 launches are kernels counted by name in the traced fused epoch
 (``fused_trace_launches``; the conv's forward and grad-input are one kernel
-symbol and are counted together).
+symbol and are counted together).  ``path_launches`` gives each kernel's
+count on each slice path's own runs (phases 20-23).
 """
 
 from __future__ import annotations
@@ -1483,6 +1500,384 @@ def phase_train_profile(tmp, cfg_path):
     return dict(trace_bytes=os.path.getsize(path), cuda_kernels=len(kernels), k3_kernels=len(k3))
 
 
+# ---- the shipped configs beyond the flagship: two people a frame (_skel_mp2),
+# the deformable head (_dcn), complex cubes (_phase), RepeatDataset (_skel480x2)
+
+CFG_DIR = os.path.join(REPO, "configs", "cruw_pose")
+MP2_FRAMES = (32, 8)      # train / test frames of the two-person root (4 steps an epoch)
+PHASE_FRAMES = (6, 2)     # train / test frames of the complex root (B=1)
+# spread of the offset convs' weights in phase 21's card-vs-CPU comparison:
+# 128 features of unit scale give offsets of ~0.6 pixel
+DCN_OFFSET_STD = 0.05
+SLICE_TOP_OPS = 10
+
+
+def slice_config(tmp, tag, name, root):
+    """A config that runs ``configs/cruw_pose/<name>.py`` as shipped, reads
+    ``root`` (cubes pre-cropped to the ROI) and saves a checkpoint after
+    every epoch."""
+    src = os.path.join(CFG_DIR, f"{name}.py")
+    path = os.path.join(tmp, f"{name}_{tag}.py")
+    with open(path, "w") as f:
+        f.write(f"exec(compile(open({src!r}).read(), {src!r}, 'exec'))\n"
+                f"DATASET['DIR']['ROOT_DIR'] = {root!r}\n"
+                "DATASET['DIR']['CUBES_ARE_ROI'] = True\n"
+                "checkpoint_config = dict(interval=1)\n")
+    return path
+
+
+def slice_counts(tag, counts, want):
+    """The wrappers' launch counts of one run against ``want`` (every other
+    kernel: 0)."""
+    full = {k: 0 for k in counts}
+    full.update(want)
+    if counts != full:
+        fail(f"{tag}: launch counts {counts}, expected {full}")
+
+
+def slice_train(tag, argv, steps, per_step):
+    """One tools.train run of a slice path, launch counts reset just before
+    and read just after: ``steps`` steps, finite losses, none skipped, each
+    kernel ``per_step[k]`` times a step.  Returns the trainer and its record."""
+    import statistics
+
+    import torch
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.tools import train as port_train
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = port_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = trainer.log_buffer.val_history
+    losses = list(hist["loss"])
+    n = len(trainer.iter_seconds)
+    if n != steps or len(losses) != steps:
+        fail(f"{tag}: {n} train steps, expected {steps}")
+    if not all(v == v and abs(v) < float("inf") for v in losses) or any(hist["skipped"]):
+        fail(f"{tag}: losses {losses}, skipped {hist['skipped']}")
+    slice_counts(tag, counts, {k: v * steps for k, v in per_step.items()})
+    ms = [t * 1e3 for t in trainer.iter_seconds[min(2, steps - 1):]]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] tools.train: {steps} steps in {wall:.1f} s wall, launch counts {counts}; "
+          f"ms/step (host clock, after warm-up) median {statistics.median(ms)}, spread "
+          f"{max(ms) - min(ms)}; peak device memory {peak:.2f} GB; losses "
+          f"{[round(v, 4) for v in losses]}")
+    return trainer, dict(steps=steps, wall_s=wall, launches=counts, losses=losses,
+                         ms_per_step_median=statistics.median(ms),
+                         ms_per_step_spread=max(ms) - min(ms),
+                         num_positive_mean=sum(hist["num_positive"]) / steps,
+                         peak_device_memory_gb=peak)
+
+
+def traced(tag, fn, n, unit):
+    """``fn()`` under torch.profiler (device activity): device busy ms and
+    operations per ``unit`` (``n`` of them), the top operations, and the
+    deformable gather (``index_select``: ``vectorized_gather_kernel``) and
+    its scatter-add backward (``index_add_``: ``indexFunc*``) where they
+    ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        fail(f"{tag}: the trace holds no device operation")
+    busy = sum(e.self_device_time_total for e in ops) / 1e3 / n
+    n_ops = sum(e.count for e in ops) / n
+
+    def ms(pred):
+        return sum(e.self_device_time_total for e in ops if pred(e.key)) / 1e3 / n
+
+    k3 = ms(lambda k: "conv3d_k3_kernel" in k)
+    gather = ms(lambda k: "gather_kernel" in k or "indexSelect" in k)
+    scatter = ms(lambda k: "indexFunc" in k)
+    print(f"[{tag} trace] {wall:.1f} s traced; device busy {busy} ms/{unit}, {n_ops} device "
+          f"operations/{unit}; K3 {k3} ms/{unit}; index_select {gather} ms/{unit}, "
+          f"index_add_ {scatter} ms/{unit}")
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:SLICE_TOP_OPS]
+    for e in top:
+        print(f"[{tag} trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3 / n:9.4f} "
+              f"ms/{unit} {e.count / n:9.2f} calls/{unit}")
+    return out, dict(device_busy_ms=busy, device_ops=n_ops, k3_ms=k3, index_select_ms=gather,
+                     index_add_ms=scatter,
+                     top=[(e.key[:80], e.self_device_time_total / 1e3 / n, e.count / n)
+                          for e in top])
+
+
+def slice_test(tag, cfg_path, ckpt, work, frames, per_forward, forwards, persons=1,
+               extra=()):
+    """tools.test on ``ckpt`` under the profiler, counts reset just before:
+    every test frame decoded with ``15 * persons`` joints, a finite MPJPE,
+    each kernel ``per_forward[k]`` times a forward."""
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.tools import test as port_test
+
+    ops.reset_launch_counts()
+    out, trace = traced(f"{tag} test", lambda: port_test.main(
+        [cfg_path, "--checkpoint", ckpt, "--work_dir", work, "--testset", *extra]),
+        frames, "frame")
+    counts = ops.launch_counts()
+    slice_counts(f"{tag} test", counts, {k: v * forwards for k, v in per_forward.items()})
+    dets, mpjpe = out["detections"], out["results"]["MPJPE"]
+    if len(dets) != frames or any(len(d["keypoints"]) != 15 * persons for d in dets.values()):
+        fail(f"{tag} test: {len(dets)} frames, joints "
+             f"{sorted({len(d['keypoints']) for d in dets.values()})}")
+    if not (mpjpe == mpjpe and 0 < mpjpe < float("inf")):
+        fail(f"{tag} test: MPJPE {mpjpe}")
+    print(f"[{tag}] tools.test: {frames} frames, {15 * persons} joints each, MPJPE {mpjpe} mm, "
+          f"launch counts {counts}")
+    return out, dict(mpjpe_mm=mpjpe, launches=counts, trace=trace)
+
+
+def card_and_cpu_models(cfg, sd, dev):
+    """The config's model on the card (its bf16 compute and the kernels) and
+    a float32 copy on the CPU, both with the state dict ``sd``."""
+    import copy
+
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.models import build_detector
+
+    asm = assemble(cfg)
+    asm.model.load_state_dict(sd)
+    model_cfg = copy.deepcopy(dict(cfg.model))
+    model_cfg["backbone"]["dtype"] = "float32"
+    model_cfg["pose_head"]["dtype"] = "float32"
+    cpu = build_detector(model_cfg)
+    cpu.load_state_dict(sd)
+    return asm, asm.model.to(dev).eval(), cpu.eval()
+
+
+def seeded_state_dict(cfg, offset_std=0.0):
+    """Seeded weights (seed 0, as phase 8's checkpoint); ``offset_std`` gives
+    the deformable head's offset convs, which start at zero, weights of that
+    spread (seed 1), so the comparison samples off the grid.  The card-vs-CPU
+    comparisons of phases 20 and 21 run on these and not on the few-step
+    checkpoints: trained that briefly, the regression shrinks until bf16's
+    own rounding (the CPU's bf16 against its float32, the flagship's too)
+    is of the order of E2E_FRAC of it."""
+    import torch
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.models import init_weights
+    from rtpose_tpu_torch.models.dcn_head import FeatureAdaption
+
+    model = init_weights(assemble(cfg).model, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FeatureAdaption) and offset_std:
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=g) * offset_std)
+    return model.state_dict()
+
+
+def card_vs_cpu_outputs(tag, gpu_out, cpu_out):
+    """Dense head outputs of one frame, card (bf16) against CPU (float32):
+    heatmap logits within E2E_FRAC of their range and the regression within
+    E2E_FRAC of its largest magnitude, over the whole volume."""
+    hm_g, hm_c = gpu_out["hm"].float().cpu(), cpu_out["hm"]
+    reg_g, reg_c = gpu_out["reg"].float().cpu(), cpu_out["reg"]
+    span = (hm_c.max() - hm_c.min()).item()
+    hm_err = check_close(f"{tag}: heatmap logits card vs cpu", hm_g, hm_c, 0.0, E2E_FRAC * span)
+    reg_max = reg_c.abs().max().item()
+    reg_err = check_close(f"{tag}: regression card vs cpu", reg_g, reg_c, 0.0, E2E_FRAC * reg_max)
+    print(f"[{tag} compare] one frame card (bf16) vs CPU (float32), seeded weights: logit "
+          f"range {span:.3f}, max err {hm_err:.4f}; max |reg| {reg_max:.3f}, max err "
+          f"{reg_err:.4f}")
+    return dict(hm_err_frac=hm_err / span, reg_err_frac=reg_err / reg_max)
+
+
+def phase_skel_mp2(tmp, dev):
+    """``_skel_mp2`` (two people a frame, dense step, top-2 decode) on a root
+    the port's generator writes: two training epochs at B=8 with
+    --device_preprocess and one more traced, tools.test on the checkpoint
+    (traced), one frame card vs CPU (seeded weights) and its multi-peak
+    decode on the card vs the CPU on the same float32 outputs, a bf16
+    tools.export artifact of the checkpoint against the live model."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.core.decode import decode_pose_multi
+    from rtpose_tpu_torch.data import generate_synthetic_dataset
+    from rtpose_tpu_torch.engine import load_checkpoint, preprocess_raw
+    from rtpose_tpu_torch.export import load_predict, make_predict_fn
+    from rtpose_tpu_torch.tools import export as port_export
+    from rtpose_tpu_torch.tools import train as port_train
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "mp2_data")
+    n_train, n_test = MP2_FRAMES
+    generate_synthetic_dataset(root, num_seqs=2, frames_per_seq=n_train // 2,
+                               test_frames_per_seq=n_test // 2, seed=5, pose_mode="skeleton",
+                               persons_per_frame=2, roi_only=True)
+    cfg_path = slice_config(tmp, "mp2", "hr3d_one_hm_doppler_skel_mp2", root)
+    cfg = Config.fromfile(cfg_path)
+    asm = assemble(cfg)
+    if asm.multi_poses != 2 or asm.sparse_head:
+        fail(f"mp2: multi_poses {asm.multi_poses}, sparse_head {asm.sparse_head}")
+    per_step = dict(preprocess=1, conv3d_k3=K3_PER_STEP, conv3d_k3_bwd=K3_PER_STEP)
+    work = os.path.join(tmp, "mp2_work")
+    argv = [cfg_path, "--work_dir", work, "--device_preprocess", "--seed", "0"]
+    steps = n_train // 8
+    trainer, train = slice_train("mp2", argv + ["--stop_epoch", "2"], 2 * steps, per_step)
+    if train["num_positive_mean"] <= 8:
+        fail(f"mp2: {train['num_positive_mean']} positives a step of 8 two-person frames")
+    _, train["trace"] = traced("mp2 train", lambda: port_train.main(
+        [cfg_path, "--work_dir", os.path.join(tmp, "mp2_trace"), "--device_preprocess",
+         "--seed", "0", "--stop_epoch", "1"]), steps, "step")
+    ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
+    out, test = slice_test("mp2", cfg_path, ckpt, os.path.join(tmp, "mp2_eval"), n_test,
+                           dict(preprocess=1, conv3d_k3=K3_PER_STEP), -(-n_test // 8),
+                           persons=2, extra=["--device_preprocess"])
+
+    # one frame: the card's forward and multi-peak decode against the CPU's
+    _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg), dev)
+    ds = build_dataset_from_cfg(cfg.data, "test", max_poses=2, device_preprocess=True)
+    raw = torch.from_numpy(ds[0]["rdr_raw"])[None]
+    norm = (ds.norm_start, ds.norm_scale)
+    with torch.inference_mode():
+        pg = gpu(preprocess_raw(raw.to(dev), norm))[0]
+        pc = cpu(preprocess_raw(raw, norm))[0]
+        compare = card_vs_cpu_outputs("mp2", pg, pc)
+        hm32, reg32 = pg["hm"].float(), pg["reg"].float()
+        kg, sg = decode_pose_multi(hm32, reg32, asm.decode_spec, 2)
+        kc, sc = decode_pose_multi(hm32.cpu(), reg32.cpu(), asm.decode_spec, 2)
+    kp_err = check_close("mp2: multi decode card vs cpu (keypoints)", kg.cpu(), kc, 0.0, 1e-5)
+    check_close("mp2: multi decode card vs cpu (scores)", sg.cpu(), sc, 1e-6, 0.0)
+    compare["decode_kpts_err_m"] = kp_err
+    print(f"[mp2 compare] multi decode of the same float32 outputs, card vs CPU: scores "
+          f"{sc.tolist()}, keypoints max err {kp_err} m")
+
+    # the bf16 serving artifact of the checkpoint against the live model on
+    # one batch of 8 frames
+    live_asm = assemble(cfg)
+    live_asm.model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+    live_asm.model.to(dev).eval()
+    art = os.path.join(tmp, "mp2_b8.pt2")
+    port_export.main([cfg_path, "--checkpoint", ckpt, "--out", art, "--batch_size", "8"])
+    host_ds = build_dataset_from_cfg(cfg.data, "test", max_poses=2)
+    xb = torch.stack([torch.from_numpy(np.ascontiguousarray(host_ds[i]["rdr_tensor"]))
+                      for i in range(8)]).to(dev)
+    live = make_predict_fn(live_asm)(xb)
+    ops.reset_launch_counts()
+    got = load_predict(art)(xb)
+    slice_counts("mp2 artifact", ops.launch_counts(), dict(conv3d_k3=K3_PER_STEP))
+    (ka, sa), (kl, sl) = got[0], live[0]
+    art_err = float((ka - kl).abs().max())
+    if ka.shape != (8, 2, 15, 3) or art_err > SERVE_ARTIFACT_ATOL_M:
+        fail(f"mp2 artifact vs live: shape {tuple(ka.shape)}, keypoints apart by {art_err} m")
+    check_close("mp2 artifact vs live (scores)", sa.cpu(), sl.cpu(), 1e-6, 0.0)
+    wall = time.perf_counter() - t_phase
+    print(f"[mp2] bf16 artifact (B=8) vs live: keypoints max err {art_err} m; phase wall "
+          f"{wall:.1f} s")
+    return dict(train=train, test=test, compare=compare, artifact_kpts_err_m=art_err,
+                wall_s=wall)
+
+
+def phase_dcn(tmp, train_root, dev):
+    """``_dcn`` (the deformable head, dense step) on the flagship training
+    root: one epoch at B=8 with --device_preprocess and one more traced
+    (the deformable gather and its scatter-add backward by kernel), peak
+    device memory, tools.test on the checkpoint (traced), one frame card
+    vs CPU (seeded weights, the offset convs given DCN_OFFSET_STD)."""
+    import torch
+    from rtpose_tpu_torch.api import build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.engine import preprocess_raw
+    from rtpose_tpu_torch.tools import train as port_train
+
+    t_phase = time.perf_counter()
+    cfg_path = slice_config(tmp, "dcn", "hr3d_one_hm_doppler_dcn", train_root)
+    cfg = Config.fromfile(cfg_path)
+    per_step = dict(preprocess=1, conv3d_k3=K3_PER_STEP, conv3d_k3_bwd=K3_PER_STEP)
+    work = os.path.join(tmp, "dcn_work")
+    steps = TRAIN_FRAMES // 8
+    _, train = slice_train("dcn", [cfg_path, "--work_dir", work, "--device_preprocess",
+                                   "--seed", "0", "--stop_epoch", "1"], steps, per_step)
+    _, train["trace"] = traced("dcn train", lambda: port_train.main(
+        [cfg_path, "--work_dir", os.path.join(tmp, "dcn_trace"), "--device_preprocess",
+         "--seed", "0", "--stop_epoch", "1"]), steps, "step")
+    ckpt = os.path.join(work, "checkpoints", "epoch_1.pth")
+    _, test = slice_test("dcn", cfg_path, ckpt, os.path.join(tmp, "dcn_eval"), 8,
+                         dict(preprocess=1, conv3d_k3=K3_PER_STEP), 1,
+                         extra=["--device_preprocess"])
+    _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg, DCN_OFFSET_STD), dev)
+    ds = build_dataset_from_cfg(cfg.data, "test", device_preprocess=True)
+    raw = torch.from_numpy(ds[0]["rdr_raw"])[None]
+    norm = (ds.norm_start, ds.norm_scale)
+    with torch.inference_mode():
+        compare = card_vs_cpu_outputs("dcn", gpu(preprocess_raw(raw.to(dev), norm))[0],
+                                      cpu(preprocess_raw(raw, norm))[0])
+    wall = time.perf_counter() - t_phase
+    print(f"[dcn] phase wall {wall:.1f} s")
+    return dict(train=train, test=test, compare=compare, wall_s=wall)
+
+
+def phase_complex(tmp):
+    """``_phase`` (complex 64-channel cubes, B=1) on a root the port's
+    generator writes: one training epoch and one more traced, tools.test
+    (traced); no kernel launches: complex cubes opt out of the card
+    preprocess and no conv of the 64/128-channel backbone is the K3 shape."""
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import generate_synthetic_dataset
+    from rtpose_tpu_torch.tools import train as port_train
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "phase_data")
+    n_train, n_test = PHASE_FRAMES
+    generate_synthetic_dataset(root, num_seqs=2, frames_per_seq=n_train // 2,
+                               test_frames_per_seq=n_test // 2, seed=7, pose_mode="skeleton",
+                               rdr_type="dzyx_complex", roi_only=True)
+    cfg_path = slice_config(tmp, "phase", "hr3d_one_hm_doppler_phase", root)
+    shape = assemble(Config.fromfile(cfg_path)).input_shape_zyxc
+    if shape != (16, 64, 160, 64):
+        fail(f"phase: input shape {shape}")
+    argv = [cfg_path, "--device_preprocess", "--seed", "0", "--stop_epoch", "1"]
+    work = os.path.join(tmp, "phase_work")
+    _, train = slice_train("phase", argv + ["--work_dir", work], n_train, {})
+    _, train["trace"] = traced("phase train", lambda: port_train.main(
+        argv + ["--work_dir", os.path.join(tmp, "phase_trace")]), n_train, "step")
+    _, test = slice_test("phase", cfg_path, os.path.join(work, "checkpoints", "epoch_1.pth"),
+                         os.path.join(tmp, "phase_eval"), n_test, {}, n_test,
+                         extra=["--device_preprocess"])
+    wall = time.perf_counter() - t_phase
+    print(f"[phase] phase wall {wall:.1f} s")
+    return dict(train=train, test=test, wall_s=wall)
+
+
+def phase_repeat(tmp, train_root):
+    """``_skel480x2`` (RepeatDataset x2) on the flagship training root: one
+    epoch takes twice the steps of its child."""
+    from rtpose_tpu_torch.api import build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import RepeatDataset
+
+    t_phase = time.perf_counter()
+    cfg_path = slice_config(tmp, "repeat", "hr3d_one_hm_doppler_skel480x2", train_root)
+    ds = build_dataset_from_cfg(Config.fromfile(cfg_path).data, "train")
+    if not isinstance(ds, RepeatDataset) or len(ds) != 2 * len(ds.dataset):
+        fail(f"repeat: {type(ds).__name__} of {len(ds)} samples")
+    child_steps = len(ds.dataset) // 8
+    per_step = dict(preprocess=1, conv3d_k3=K3_PER_STEP, conv3d_k3_bwd=K3_PER_STEP)
+    _, train = slice_train("repeat", [cfg_path, "--work_dir", os.path.join(tmp, "repeat_work"),
+                                      "--device_preprocess", "--seed", "0", "--stop_epoch",
+                                      "1"], 2 * child_steps, per_step)
+    wall = time.perf_counter() - t_phase
+    print(f"[repeat] {train['steps']} steps = twice the child's {child_steps}; phase wall "
+          f"{wall:.1f} s")
+    return dict(train=train, child_steps=child_steps, wall_s=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -1527,6 +1922,9 @@ def main() -> int:
                                            train["device_cache"]["param_rel_dist"])
         train["stream"] = phase_train_stream(tmp, train_cfg)
         train["profile"] = phase_train_profile(tmp, train_cfg)
+        train_root = os.path.join(tmp, "train_data")
+        slices = dict(skel_mp2=phase_skel_mp2(tmp, dev), dcn=phase_dcn(tmp, train_root, dev),
+                      phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
     k1, k2, k3, k3_bwd, k3_int8 = kernels
     # the serving path's own run: the int8 artifact through tools.test
@@ -1546,11 +1944,20 @@ def main() -> int:
     k1["fused_trace_launches"] = ft["preprocess_kernel"]
     k3["fused_trace_launches_with_bwd"] = ft["conv3d_k3_kernel"]
     k3_bwd["fused_trace_launches_with_fwd"] = ft["conv3d_k3_kernel"]
+    # each slice path's own runs: the wrappers' counts, reset just before each
+    names = {"preprocess": k1, "conv3d_k3": k3, "conv3d_k3_bwd": k3_bwd}
+    for name, k in names.items():
+        k["path_launches"] = {}
+        for path, r in slices.items():
+            k["path_launches"][f"{path}_train"] = r["train"]["launches"][name]
+            if "test" in r:
+                k["path_launches"][f"{path}_test"] = r["test"]["launches"][name]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"slices": slices}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

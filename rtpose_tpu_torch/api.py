@@ -58,9 +58,31 @@ class Assembly:
 
     @property
     def sparse_head(self) -> bool:
-        """The sparse reg-tower path is single-peak (the only decode ported)
-        and single-task."""
-        return self.one_hm and len(self.model_cfg["pose_head"]["tasks"]) == 1
+        """The sparse reg-tower path: single-task, single-peak one-heatmap
+        configs.  Multi-person configs run the dense step and the multi-peak
+        decode; the deformable head needs the full feature map, so its
+        configs run dense too (``rtpose_tpu/api.py:40-50``)."""
+        return (self.one_hm and len(self.model_cfg["pose_head"]["tasks"]) == 1
+                and self.target_spec.max_poses == 1
+                and not self.model_cfg["pose_head"].get("dcn_head"))
+
+    @property
+    def multi_poses(self) -> int:
+        """Top-P multi-person decode count (0 = single-person surface)."""
+        if self.one_hm and self.target_spec.max_poses > 1:
+            return self.target_spec.max_poses
+        return 0
+
+
+def input_channels(dataset_cfg: Dict[str, Any]) -> int:
+    """Channel count from RDR_TYPE and DOPPLER_BINS: D Doppler bins, twice
+    that for complex cubes (real and imaginary parts), 1 or 2 without
+    Doppler."""
+    rdr_type = dataset_cfg.get("RDR_TYPE", "zyx_real")
+    d_bins = int(dataset_cfg.get("DOPPLER_BINS", 32))
+    if "d" in rdr_type:
+        return 2 * d_bins if "complex" in rdr_type else d_bins
+    return 2 if "complex" in rdr_type else 1
 
 
 def grid_from_cfg(dataset_cfg: Dict[str, Any]) -> Tuple[int, int, int]:
@@ -93,8 +115,6 @@ def assemble(cfg) -> Assembly:
         out_size_factor_zyx=osf,
         score_threshold=float(test_cfg.get("score_threshold", 0.0)),
     )
-    if int(assigner_cfg.get("max_poses", 1)) != 1:
-        raise NotImplementedError("multi-person decode is not ported")
     target_spec = PoseTargetSpec(
         grid_zyx=decode_spec.grid_zyx,
         pc_range_min_xyz=decode_spec.pc_range_min_xyz,
@@ -104,12 +124,10 @@ def assemble(cfg) -> Assembly:
         min_radius=int(assigner_cfg.get("min_radius", 2)),
         mode=mode,
         num_classes=len(model_cfg["pose_head"]["tasks"][0]["class_names"]))
-    from .models.hrnet3d import MODEL_CONFIGS
-    arch = model_cfg["backbone"].get("backbone_cfg", "hr_tiny_feat16_zyx_l4")
-    channels = MODEL_CONFIGS[arch]["layer1"]["inplanes"]
     return Assembly(model=build_detector(model_cfg), decode_spec=decode_spec,
                     one_hm=(mode == "one_hm"), model_cfg=model_cfg,
-                    target_spec=target_spec, input_shape_zyxc=(*grid, channels))
+                    target_spec=target_spec,
+                    input_shape_zyxc=(*grid, input_channels(dataset_cfg)))
 
 
 def serving_variant(asm: Assembly, final_dtype) -> Assembly:
@@ -124,10 +142,16 @@ def serving_variant(asm: Assembly, final_dtype) -> Assembly:
 
 def build_dataset_from_cfg(data_cfg: Dict[str, Any], split: str,
                            device_preprocess: bool = False, max_poses: int = 1):
-    """Build a dataset from cfg.data.{train,val,test} (reference schema)."""
+    """Build a dataset from cfg.data.{train,val,test} (reference schema).
+    ``split``, ``max_poses`` and the flags reach every child of a wrapper
+    (``data/wrappers.py``)."""
     dcfg = dict(data_cfg[split])
+    dcfg.pop("class_names", None)
     dcfg["split"] = "train" if split == "train" else "test"
     dcfg["max_poses"] = max_poses
+    if max_poses > 1:
+        # multi-person configs: one sample per frame carrying all its people
+        dcfg["group_by_frame"] = True
     if device_preprocess:
         dcfg["device_preprocess"] = True
     return build_from_cfg(dcfg, DATASETS)

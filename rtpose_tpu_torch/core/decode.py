@@ -14,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +104,65 @@ def decode_pose_sparse(hm_logits: torch.Tensor, reg_at_peak: torch.Tensor,
     scores = score[:, None].expand(B, K)
     labels = torch.arange(K, dtype=torch.int32, device=dev).expand(B, K)
     return kpts, scores, labels
+
+
+def top_k_lowest_index(v: torch.Tensor, k: int):
+    """The ``k`` largest values of each row of ``v`` (B, N) and their
+    indices, equal values lowest index first: ``jax.lax.top_k``'s order,
+    which ``torch.topk`` does not promise (a heatmap plateau, sigmoids that
+    underflowed to 0.0).  A stable descending sort keeps the index order
+    among equal values."""
+    vals, idx = torch.sort(v, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def decode_pose_multi(hm_logits: torch.Tensor, reg: torch.Tensor, spec: DecodeSpec,
+                      max_objects: int):
+    """Multi-person decode for the one-heatmap head
+    (``rtpose_tpu/core/decode.py:153-185``): CenterNet local maxima (a voxel
+    equal to its 3^3 max, padding -inf) of the pelvis sigmoid, the top
+    ``max_objects`` of them, each decoding its own 15 joints from the
+    regression at its voxel.
+
+    Returns kpts (B, P, K, 3) float32 world xyz and scores (B, P)."""
+    B, Z, Y, X, C = hm_logits.shape
+    K = reg.shape[-1] // 3
+    hm = torch.sigmoid(hm_logits[..., 0].float())                     # (B, Z, Y, X)
+    pooled = F.max_pool3d(hm[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
+    peaks = torch.where(hm == pooled, hm, torch.zeros_like(hm)).reshape(B, -1)
+    scores, flat_ind = top_k_lowest_index(peaks, max_objects)          # (B, P)
+    base = _ind_to_vox_xyz(flat_ind, Y, X)                             # (B, P, 3)
+    regf = reg.float().reshape(B, Z * Y * X, 3 * K)
+    off = torch.gather(regf, 1, flat_ind[..., None].expand(B, max_objects, 3 * K))
+    kpts = _voxel_to_world(base[:, :, None, :] + off.reshape(B, max_objects, K, 3), spec)
+    return kpts, scores
+
+
+def post_process_pose_multi(kpts, scores, spec: DecodeSpec, metas=None):
+    """``decode_pose_multi`` outputs -> per-sample keypoint lists: each pose's
+    K joints tagged with its center score, poses in score order (groups of K,
+    which the evaluation splits again).  A pose after the first whose score
+    is at or below the threshold is dropped, also at threshold 0.0, where a
+    score that underflowed to 0.0 drops its pose
+    (``rtpose_tpu/core/decode.py:211-240``, kept as it is)."""
+    kpts = np.asarray(kpts)
+    scores = np.asarray(scores)
+    B, P, K, _ = kpts.shape
+    out = []
+    for b in range(B):
+        pts = []
+        for p in range(P):
+            sc = float(scores[b, p])
+            if p > 0 and sc <= spec.score_threshold:
+                continue
+            for j in range(K):
+                pts.append((j, float(kpts[b, p, j, 0]), float(kpts[b, p, j, 1]),
+                            float(kpts[b, p, j, 2]), sc))
+        ret = {"keypoints": pts}
+        if metas is not None:
+            ret["metadata"] = metas[b]
+        out.append(ret)
+    return out
 
 
 def post_process_pose(kpts, scores, labels, spec: DecodeSpec, metas=None,

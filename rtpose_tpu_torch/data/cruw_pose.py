@@ -14,10 +14,15 @@ Counterpart of ``rtpose_tpu/data/cruw_pose.py`` (reference
   per sequence, then overall;
 * the base class's uniform aspect-group ``flag`` and ``max_poses``-padded
   ``poses`` with ``num_poses``, so a training loader batches as the JAX one
-  does.
+  does; ``group_by_frame`` makes one sample per frame carrying all of its
+  people (the multi-person configs) where the reference makes one per
+  person;
+* complex cubes (``RDR_TYPE`` ``*_complex``, (2, D, Z, Y, X) pre-normalized
+  real/imaginary parts, ``get_cube_phase``): ROI crop only, shipped as
+  (Z, Y, X, 2D) channels-last, and never preprocessed on the card.
 
-Not ported yet: the native C++ cube loader, the complex-phase cubes, the
-KITTI box-AP report and the LiDAR dataset.
+Not ported yet: the native C++ cube loader, the KITTI box-AP report and the
+LiDAR dataset.
 """
 
 from __future__ import annotations
@@ -93,25 +98,27 @@ class CRUWPoseDataset:
 
     def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
                  pipeline=None, split: str = "train", max_poses: int = 1,
-                 device_preprocess: bool = False):
+                 device_preprocess: bool = False, group_by_frame: bool = False):
         ds = cfg["DATASET"]
-        self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
-        if "complex" in self.rdr_type:
-            raise NotImplementedError("complex radar cubes are not ported")
         if pipeline:
             raise NotImplementedError("dataset pipelines are not ported")
+        self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
+        self.with_doppler = "d" in self.rdr_type
+        self.is_complex = "complex" in self.rdr_type
         # device_preprocess: items carry the ROI-cropped RAW cube in the
         # on-disk dtype ('rdr_raw', (D, Z', Y', X')); cast + normalize +
-        # clamp + channels-last run on the card (ops/preprocess.py)
-        self.device_preprocess = bool(device_preprocess)
+        # clamp + channels-last run on the card (ops/preprocess.py).  Complex
+        # cubes are pre-normalized and only cropped: they opt out
+        self.device_preprocess = bool(device_preprocess) and not self.is_complex
+        self.group_by_frame = bool(group_by_frame)
         self.cfg = cfg
         self.split = split
         self.class_names = class_names
         self.max_poses = int(max_poses)
         self.root_dir = ds["DIR"]["ROOT_DIR"]
-        self.with_doppler = "d" in self.rdr_type
-        self.rdr_dirname = ds["DIR"].get(
-            "RDR_DIR", "DZYX_npy_f16" if self.with_doppler else "npy")
+        default_dir = ("DZYX_npy_f16_complex" if self.is_complex
+                       else "DZYX_npy_f16" if self.with_doppler else "npy")
+        self.rdr_dirname = ds["DIR"].get("RDR_DIR", default_dir)
 
         roi = None
         if ds["RDR_CUBE"].get("IS_CONSIDER_ROI", False):
@@ -158,6 +165,11 @@ class CRUWPoseDataset:
             if self.seq_id_to_name.get(seq) in EXCLUDED_SEQS:
                 continue
             for frame, objs in frames.items():
+                if self.group_by_frame and objs:
+                    samples.append(dict(seq=seq, frame=frame,
+                                        rdr_frame=objs[0]["Radar_frameID"],
+                                        poses=[o["pose"] for o in objs]))
+                    continue
                 for obj in objs:
                     samples.append(dict(seq=seq, frame=frame,
                                         rdr_frame=obj["Radar_frameID"],
@@ -173,9 +185,15 @@ class CRUWPoseDataset:
 
     def get_cube(self, seq: str, rdr_frame: str) -> np.ndarray:
         """Load, ROI-crop, normalize: channels-last (Z, Y, X, D) float32
-        (the reference's three-pass numpy math, cruw_pose.py:167-185)."""
+        (the reference's three-pass numpy math, cruw_pose.py:167-185).
+        Complex cubes: crop only, (Z, Y, X, 2D) (``get_cube_phase``,
+        cruw_pose.py:188-194)."""
         arr = np.load(self._cube_path(seq, rdr_frame)).astype(np.float32)
         z0, z1, y0, y1, x0, x1 = self.cube_roi_idx
+        if self.is_complex:
+            arr = arr[:, :, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
+            arr = arr.reshape(-1, *arr.shape[2:])           # (2D, Z, Y, X)
+            return np.ascontiguousarray(np.transpose(arr, (1, 2, 3, 0)))
         if self.with_doppler:
             arr = arr[:, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
             arr = np.transpose(arr, (1, 2, 3, 0))

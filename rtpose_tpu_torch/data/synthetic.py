@@ -74,18 +74,26 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                                z_clip=(-0.9, 2.0),
                                pose_mode: str = "gaussian",
                                test_frames_per_seq: int = None,
+                               persons_per_frame: int = 1,
+                               seq_offset: int = 0,
                                roi_only: bool = False) -> Dict[str, list]:
     """Create the dataset under ``root``; returns {split: [sample keys]}.
 
+    ``persons_per_frame`` > 1 puts several people in a frame, their pelvis
+    centers at least 1.2 m apart (fewer when 64 draws do not find room).
+    ``seq_offset`` shifts the sequence ids and names, so roots generated
+    for concatenation (``ConcatDataset``) do not collide.  A complex
+    ``rdr_type`` (``dzyx_complex``) writes (2, D, Z, Y, X) pre-normalized
+    real and imaginary parts with a uniform random phase.
     ``roi_only=True`` writes each cube pre-cropped to the ROI1 region
     (10.5 MB instead of 67 MB per f16 Doppler frame); pair it with
     ``DIR.CUBES_ARE_ROI=True`` in the dataset config."""
-    if "complex" in rdr_type:
-        raise NotImplementedError("complex radar cubes are not ported")
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     with_doppler = "d" in rdr_type
-    rdr_dir = "DZYX_npy_f16" if with_doppler else "npy"
+    is_complex = "complex" in rdr_type
+    rdr_dir = ("DZYX_npy_f16_complex" if is_complex
+               else "DZYX_npy_f16" if with_doppler else "npy")
     # the on-disk dtypes: f16 Doppler cubes; zyx_real magnitudes (~2e5)
     # overflow f16 and stay f32
     dtype = np.float16 if with_doppler else np.float32
@@ -108,7 +116,7 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
     meta_lines = []
     splits = {"Train": {}, "Test": {}}
     keys = {"Train": [], "Test": []}
-    for s in range(num_seqs):
+    for s in range(seq_offset, seq_offset + num_seqs):
         seq_id = str(s)
         seq_name = f"2024_0101_{1000 + s}"
         meta_lines.append(f"{seq_id},{seq_name}")
@@ -123,22 +131,29 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                 frame = f"{split.lower()}_{fi:04d}"
                 rdr_frame = f"{frame_counter:06d}"
                 frame_counter += 1
-                pose = _random_pose(rng, pelvis_range, offset_scale, z_clip,
-                                    pose_mode=pose_mode)
+                poses = []
+                for _ in range(64):
+                    cand = _random_pose(rng, pelvis_range, offset_scale, z_clip,
+                                        pose_mode=pose_mode)
+                    if all(np.linalg.norm(cand[0, :2] - q[0, :2]) >= 1.2 for q in poses):
+                        poses.append(cand)
+                    if len(poses) == persons_per_frame:
+                        break
 
                 cube = rng.uniform(n0, n0 + 0.1 * (n1 - n0),
                                    size=(Z, Y, X)).astype(np.float32)
                 # continuous fractional voxel coords (sub-voxel position)
-                fz = (pose[:, 2] - arr_z[0]) / (11.6 / 32)
-                fy = (pose[:, 1] - arr_y[0]) / (20.1 / 128)
-                fx = (pose[:, 0] - arr_x[0]) / (11.6 / 256)
+                all_pose = np.concatenate(poses, 0)               # (P * 15, 3)
+                fz = (all_pose[:, 2] - arr_z[0]) / (11.6 / 32)
+                fy = (all_pose[:, 1] - arr_y[0]) / (20.1 / 128)
+                fx = (all_pose[:, 0] - arr_x[0]) / (11.6 / 256)
                 zi = np.clip(np.round(fz).astype(int), 1, Z - 2)
                 yi = np.clip(np.round(fy).astype(int), 1, Y - 2)
                 xi = np.clip(np.round(fx).astype(int), 1, X - 2)
-                for j in range(15):
+                for j in range(15 * len(poses)):
                     # per-joint intensity level (the pelvis brightest) and a
                     # gaussian splat at the continuous position
-                    level = 0.95 - 0.04 * j - 0.05 * rng.random()
+                    level = 0.95 - 0.04 * (j % 15) - 0.05 * rng.random()
                     zz, yy, xx2 = np.meshgrid(
                         np.arange(zi[j] - 1, zi[j] + 2),
                         np.arange(yi[j] - 1, yi[j] + 2),
@@ -149,18 +164,27 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                     win = cube[zi[j]-1:zi[j]+2, yi[j]-1:yi[j]+2, xi[j]-1:xi[j]+2]
                     np.maximum(win, blob, out=win)
                 if roi_slice is not None:
-                    # crop first: the Doppler scaling below is elementwise,
-                    # so the values are those of the cropped full cube
+                    # crop first: what follows is elementwise, so the values
+                    # are those of the cropped full cube
                     cube = cube[roi_slice]
                 if with_doppler:
                     dop = rng.dirichlet(np.ones(doppler_bins)).astype(np.float32)
                     full = cube[None] * (dop[:, None, None, None] * doppler_bins)
+                    if is_complex:
+                        # pre-normalized (real, imag); the phase is drawn over
+                        # the full cube, so a cropped root keeps its values
+                        full = (full - n0) / (n1 - n0)
+                        phase = rng.uniform(0, 2 * np.pi,
+                                            size=(doppler_bins, Z, Y, X)).astype(np.float32)
+                        if roi_slice is not None:
+                            phase = phase[(slice(None),) + roi_slice]
+                        full = np.stack([full * np.cos(phase), full * np.sin(phase)])
                 else:
                     full = cube
                 np.save(os.path.join(cube_dir, f"{rdr_frame}.npy"),
                         np.ascontiguousarray(full.astype(dtype)))
                 splits[split][seq_id][frame] = [
-                    {"Radar_frameID": rdr_frame, "pose": pose.tolist()}]
+                    {"Radar_frameID": rdr_frame, "pose": q.tolist()} for q in poses]
                 keys[split].append(f"{seq_id}/{frame}/{rdr_frame}")
 
     with open(os.path.join(root, "file_meta.txt"), "w") as f:

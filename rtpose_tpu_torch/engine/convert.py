@@ -6,7 +6,10 @@ params tree (nested dicts of numpy arrays, with or without the top-level
 torch model — the names ``rtpose_tpu/engine/torch_import.py::
 build_name_map`` maps the other way, so a port checkpoint also loads back
 into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
-kx); GroupNorm ``scale`` -> ``weight``.
+kx), the deformable head's 2-D kernels (ky, kx, Ci, Co) -> (Co, Ci, ky,
+kx); GroupNorm and LayerNorm ``scale`` -> ``weight``.  The deformable head
+(``models/dcn_head.py``) keeps the flax module names, which
+``rtpose_tpu/engine/torch_import.py`` does not know.
 
 ``site_paths(model)`` goes the other way for the int8 quant sites: each
 site module of the port -> its flax path, the key of a scales dict.
@@ -54,6 +57,8 @@ def _segment(name: str, parent: str, siblings: List[str]) -> str:
         if parent in ("conv2", "conv3"):
             return "groupnorm" if name == "GroupNorm8_0" else "conv"
         return "0" if name == "GroupNorm8_0" else "1"
+    if name in ("cls_conv0", "cls_out") and "cls_norm" in siblings:
+        return name       # the deformable head's heatmap convs keep their names
     m = re.match(r"^(\w+?)_(conv(\d+)|out)$", name)
     if m and parent.startswith("task"):
         head = m.group(1)
@@ -71,6 +76,8 @@ def _to_torch(value) -> torch.Tensor:
     a = np.array(value, dtype=np.float32)
     if a.ndim == 5:  # conv kernel (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky, kx)
         a = np.transpose(a, (4, 3, 0, 1, 2))
+    elif a.ndim == 4:  # 2-D conv kernel (ky, kx, Ci, Co) -> (Co, Ci, ky, kx)
+        a = np.transpose(a, (3, 2, 0, 1))
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
@@ -151,11 +158,14 @@ def site_paths(model) -> Dict[Any, str]:
     if head.shared_conv is not None:
         out[head.shared_conv[1]] = "head_m/shared_conv"
     for t, sep in enumerate(head.tasks):
+        path = f"head_m/task{t}"
+        if hasattr(sep, "task_head"):       # the deformable head's SepHead
+            sep, path = sep.task_head, f"{path}/task_head"
         for name in sep.heads:
             convs = [m for m in getattr(sep, name) if isinstance(m, TorchConv3d)]
             for i, m in enumerate(convs[:-1]):
-                out[m] = f"head_m/task{t}/{name}_conv{i}"
-            out[convs[-1]] = f"head_m/task{t}/{name}_out"
+                out[m] = f"{path}/{name}_conv{i}"
+            out[convs[-1]] = f"{path}/{name}_out"
     missing = [n for n, m in model.named_modules()
                if isinstance(m, TorchConv3d) and m not in out]
     if missing:

@@ -19,7 +19,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.decode import post_process_pose
+from ..core.decode import post_process_pose, post_process_pose_multi
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[dict]:
@@ -100,7 +100,9 @@ def device_prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[di
 def run_eval(eval_step: Callable, loader, decode_spec, *, device: torch.device,
              one_hm: bool = True, speed_test: bool = False,
              logger=None) -> Tuple[Dict[str, dict], Optional[float]]:
-    """Returns (detections, seconds_per_frame or None).
+    """Returns (detections, seconds_per_frame or None).  A task's outputs
+    are (kpts, scores, labels), or (kpts, scores) from the multi-person
+    decode (``post_process_pose_multi``).
 
     The timed window covers host load + H2D + forward/decode + host
     post-processing of the middle third of the batches — the end-to-end
@@ -134,9 +136,15 @@ def run_eval(eval_step: Callable, loader, decode_spec, *, device: torch.device,
         if cuda:
             torch.cuda.current_stream(device).synchronize()
         merged = None
-        for kpts, scores, labels in per_task:
-            outs = post_process_pose(kpts.numpy(), scores.numpy(), labels.numpy(),
-                                     decode_spec, metas=metas, one_hm=one_hm)
+        for outs in per_task:
+            if len(outs) == 2:          # the multi-person decode
+                kpts, scores = outs
+                outs = post_process_pose_multi(kpts.numpy(), scores.numpy(), decode_spec,
+                                               metas=metas)
+            else:
+                kpts, scores, labels = outs
+                outs = post_process_pose(kpts.numpy(), scores.numpy(), labels.numpy(),
+                                         decode_spec, metas=metas, one_hm=one_hm)
             if merged is None:
                 merged = outs
             else:

@@ -29,7 +29,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import ops
-from ..core.decode import decode_pose_sparse
+from ..core.decode import decode_pose_multi, decode_pose_sparse
 from ..core.targets import PoseTargetSpec, assign_pose_targets
 from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
@@ -308,16 +308,24 @@ def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tup
 
 def make_eval_step(model, decode_spec, input_key: str = "rdr_tensor",
                    sparse: bool = False,
-                   preprocess: Optional[tuple] = None) -> Callable:
+                   preprocess: Optional[tuple] = None,
+                   multi_poses: int = 0) -> Callable:
     """Forward + decode; the step returns per-task (kpts, scores, labels).
 
     ``sparse=True`` (single-task one_hm configs): the reg tower runs only on
     the receptive-field patch around each heatmap peak
-    (``RadarPoseNet.predict_sparse``).
+    (``RadarPoseNet.predict_sparse``).  ``multi_poses=P`` (one_hm configs
+    with ``max_poses > 1``): dense forward, local maxima and the top P
+    (``core.decode.decode_pose_multi``); the step returns
+    ``[(kpts (B, P, K, 3), scores (B, P))]``.
     """
     @torch.inference_mode()
     def eval_step(batch):
         x = model_input_of(batch, input_key, preprocess)
+        if multi_poses > 1:
+            preds = model(x)
+            return [decode_pose_multi(preds[0]["hm"], preds[0]["reg"], decode_spec,
+                                      max_objects=multi_poses)]
         if sparse:
             hm, reg_at_peak, peak_ind = model.predict_sparse(x)
             return [decode_pose_sparse(hm, reg_at_peak, peak_ind, decode_spec)]

@@ -12,6 +12,8 @@ their ``torch.ops.rtpose`` custom ops (``ops/library.py``).
     save_exported("model.pt2", ep)
     predict = load_predict("model.pt2")   # predict(cube) -> [(kpts, scores, labels)]
 
+A multi-person artifact (``multi_poses`` > 1) returns ``[(kpts, scores)]``.
+
 JAX's ``platforms`` becomes the one device the artifact was exported for,
 recorded in it; loading it for another device raises.
 """
@@ -28,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .core.decode import decode_pose_sparse
+from .core.decode import decode_pose_multi, decode_pose_sparse
 from .engine.convert import bind_sites
 from .models.layers import TorchConv3d
 from .ops import quant
@@ -37,7 +39,9 @@ META_FILE = "rtpose_meta.json"
 
 
 class Predictor(nn.Module):
-    """``model_input -> (kpts, scores, labels, ...)``, three tensors per task.
+    """``model_input -> (kpts, scores, labels, ...)``, three tensors per task,
+    or with ``multi_poses`` = P > 1 ``(kpts (B, P, K, 3), scores (B, P))``
+    (the dense forward and ``decode_pose_multi``).
 
     ``model_input`` is the normalized (B, Z, Y, X, C) float32 cube, or with
     ``preprocess = (norm_start, norm_scale)`` the ROI-cropped raw (B, D, Z,
@@ -47,11 +51,12 @@ class Predictor(nn.Module):
 
     def __init__(self, model, decode_spec, sparse: bool, preprocess: Optional[tuple] = None,
                  int8_scales: Optional[dict] = None,
-                 int8_exclude: tuple = quant.DEFAULT_EXCLUDE):
+                 int8_exclude: tuple = quant.DEFAULT_EXCLUDE, multi_poses: int = 0):
         super().__init__()
         self.model = model
         self.decode_spec = decode_spec
         self.sparse = sparse
+        self.multi_poses = int(multi_poses)
         self.preprocess = None if preprocess is None else tuple(float(v) for v in preprocess)
         self.int8_scales = None if int8_scales is None else dict(int8_scales)
         self.int8_exclude = tuple(int8_exclude)
@@ -63,7 +68,11 @@ class Predictor(nn.Module):
         ctx = (contextlib.nullcontext() if self.int8_scales is None
                else quant.int8_mode(self.int8_scales, exclude=self.int8_exclude))
         with ctx:
-            if self.sparse:
+            if self.multi_poses > 1:
+                preds = self.model(x)
+                outs = [decode_pose_multi(preds[0]["hm"], preds[0]["reg"], self.decode_spec,
+                                          max_objects=self.multi_poses)]
+            elif self.sparse:
                 hm, reg_at_peak, peak_ind = self.model.predict_sparse(x)
                 outs = [decode_pose_sparse(hm, reg_at_peak, peak_ind, self.decode_spec)]
             else:
@@ -71,8 +80,11 @@ class Predictor(nn.Module):
         return tuple(t for task in outs for t in task)
 
 
-def _grouped(flat):
-    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+def _grouped(flat, multi_poses: int = 0):
+    """The flat outputs per task: (kpts, scores, labels), or (kpts, scores)
+    of the multi-person decode."""
+    n = 2 if multi_poses > 1 else 3
+    return [tuple(flat[i:i + n]) for i in range(0, len(flat), n)]
 
 
 def _serving_model(asm, final_dtype):
@@ -95,11 +107,11 @@ def make_predict_fn(asm, preprocess: Optional[tuple] = None,
     a copy of the model)."""
     asm = _serving_model(asm, final_dtype)
     pred = Predictor(asm.model, asm.decode_spec, asm.sparse_head, preprocess,
-                     int8_scales, int8_exclude)
+                     int8_scales, int8_exclude, asm.multi_poses)
 
     def predict(model_input):
         with torch.inference_mode():
-            return _grouped(pred(model_input))
+            return _grouped(pred(model_input), asm.multi_poses)
 
     predict.model = asm.model
     return predict
@@ -135,7 +147,7 @@ def export_predict(asm, batch_size: int = 1, device: str = "cuda",
     asm = _serving_model(asm, final_dtype)
     model = copy.deepcopy(asm.model).to(dev).eval()     # the sites' names come along
     pred = Predictor(model, asm.decode_spec, asm.sparse_head, preprocess, int8_scales,
-                     int8_exclude)
+                     int8_exclude, asm.multi_poses)
     Z, Y, X, C = asm.input_shape_zyxc
     if preprocess is None:
         example = asm.example_input(batch_size, dev)
@@ -158,6 +170,7 @@ def export_predict(asm, batch_size: int = 1, device: str = "cuda",
         input_dtype=str(example.dtype).replace("torch.", ""),
         preprocess=None if preprocess is None else [float(v) for v in preprocess],
         int8_sites=None if int8_scales is None else len(int8_scales),
+        multi_poses=asm.multi_poses,
         final_dtype=None if final_dtype is None else str(final_dtype).replace("torch.", ""))
     return ep
 
@@ -192,7 +205,7 @@ def load_predict(path_or_bytes, device: Optional[str] = None):
 
     def predict(model_input):
         with torch.no_grad():
-            return _grouped(module(model_input))
+            return _grouped(module(model_input), meta.get("multi_poses", 0))
 
     predict.meta = meta
     return predict

@@ -9,7 +9,9 @@ Counterpart of ``rtpose_tpu/models/center_head.py`` (reference
   (num_conv - 1) x [3x3x3 conv(head_conv) + ReLU] then a final 3x3x3 conv
   to the target width, computed in ``final_dtype`` (float32 by default);
   the heatmap head's final bias initializes to ``init_bias`` = -2.19;
-* ``predict`` = dense decode (``core.decode.decode_pose_preds``).
+* ``predict`` = dense decode (``core.decode.decode_pose_preds``);
+* ``dcn_head=True``: each task is a ``models.dcn_head.DCNSepHead``
+  (``rtpose_tpu/models/center_head.py:133-140``).
 
 * ``loss`` = per-task focal (``focal_form``: ``"logits"``, the shipped
   form, or the reference's ``"clamped"``) + ``weight`` x code-weighted L1
@@ -94,8 +96,6 @@ class CenterHead(nn.Module):
                  dataset: str = "cruw_pose", dcn_head: bool = False,
                  dtype=None, final_dtype=torch.float32, focal_form: str = "logits"):
         super().__init__()
-        if dcn_head:
-            raise NotImplementedError("the deformable-conv head is not ported")
         if focal_form not in ("logits", "clamped"):
             raise ValueError(f"focal_form must be 'logits' or 'clamped', got {focal_form!r}")
         self.focal_form = focal_form
@@ -118,6 +118,13 @@ class CenterHead(nn.Module):
         task_heads = []
         for num_cls in self.num_classes:
             heads = {k: tuple(v) for k, v in (common_heads or {}).items()}
+            if dcn_head:
+                # the deformable head (models/dcn_head.py): built, as in the
+                # JAX package, without the compute and final dtypes
+                from .dcn_head import DCNSepHead
+                task_heads.append(DCNSepHead(ch, num_cls, heads, head_conv=32,
+                                             init_bias=init_bias))
+                continue
             heads["hm"] = (num_cls, num_hm_conv)
             task_heads.append(SepHead(ch, heads, head_conv=32, final_kernel=3,
                                       init_bias=init_bias, dtype=dtype,

@@ -16,6 +16,7 @@ import torch.nn as nn
 from ..core.decode import flat_argmax
 from ..registry import BACKBONES, DETECTORS, HEADS, READERS, build_from_cfg
 from .center_head import SepHead
+from .dcn_head import Conv2dNHWC, DCNSepHead, DeformConv2d, FeatureAdaption, LayerNormNHWC
 from .layers import GroupNorm8, TorchConv3d
 
 
@@ -119,20 +120,28 @@ def build_detector(cfg: dict):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random initialization: He-normal conv kernels (fan-in), zero
-    biases except the heatmap output's ``init_bias``, unit GroupNorm scales.
-    Draws happen on the CPU from ``generator`` in module order."""
+    biases except the heatmap output's ``init_bias``, unit GroupNorm and
+    LayerNorm scales; the deformable head's offset convs start at zero, so
+    it starts as a plain conv (reference center_head.py:56-57).  Draws
+    happen on the CPU from ``generator`` in module order."""
+    offset_convs = {m.conv_offset for m in model.modules() if isinstance(m, FeatureAdaption)}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, TorchConv3d):
-                fan_in = m.weight[0].numel()
-                w = torch.randn(m.weight.shape, generator=generator) * (2.0 / fan_in) ** 0.5
-                m.weight.copy_(w)
-                if m.bias is not None:
+            if isinstance(m, (TorchConv3d, Conv2dNHWC, DeformConv2d)):
+                if m in offset_convs:
+                    m.weight.zero_()
+                else:
+                    fan_in = m.weight[0].numel()
+                    w = torch.randn(m.weight.shape, generator=generator) * (2.0 / fan_in) ** 0.5
+                    m.weight.copy_(w)
+                if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
-            elif isinstance(m, GroupNorm8):
+            elif isinstance(m, (GroupNorm8, LayerNormNHWC)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         for m in model.modules():
             if isinstance(m, SepHead) and "hm" in m.heads:
                 m.hm[-1].bias.fill_(m.init_bias)
+            elif isinstance(m, DCNSepHead):
+                m.cls_out.bias.fill_(m.init_bias)
     return model

@@ -48,16 +48,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def collect_calib_batches(cfg, batch_size: int, n_batches: int, split: str, device):
+def collect_calib_batches(cfg, batch_size: int, n_batches: int, split: str, device,
+                          max_poses: int = 1):
     """Model inputs for activation calibration: the first ``n_batches``
-    batches of ``split`` through the same host path the eval loader uses."""
+    batches of ``split`` through the same host path the eval loader uses
+    (one sample per frame with ``max_poses`` > 1, as there)."""
     import numpy as np
     import torch
 
     from rtpose_tpu_torch.api import build_dataset_from_cfg
     from rtpose_tpu_torch.data import BatchLoader
 
-    loader = BatchLoader(build_dataset_from_cfg(cfg.data, split), batch_size=batch_size,
+    loader = BatchLoader(build_dataset_from_cfg(cfg.data, split, max_poses=max_poses),
+                         batch_size=batch_size,
                          shuffle=False, drop_last=False)
     batches = []
     for batch in loader:
@@ -88,7 +91,7 @@ def main(argv=None) -> dict:
     int8_scales = None
     if args.int8:
         batches = collect_calib_batches(cfg, args.batch_size, args.calib_batches,
-                                        args.calib_split, device)
+                                        args.calib_split, device, asm.target_spec.max_poses)
         int8_scales = calibrate_predict(asm, batches, exclude=exclude,
                                         final_dtype=args.final_dtype,
                                         quantile=args.calib_quantile)

@@ -106,7 +106,7 @@ def main(argv=None) -> dict:
 
     split = "test" if args.testset else "val"
     print("Use Test Set" if args.testset else "Use Val Set")
-    dataset = build_dataset_from_cfg(cfg.data, split,
+    dataset = build_dataset_from_cfg(cfg.data, split, max_poses=asm.target_spec.max_poses,
                                      device_preprocess=args.device_preprocess)
     preprocess = ((dataset.norm_start, dataset.norm_scale)
                   if dataset.device_preprocess else None)
@@ -117,7 +117,7 @@ def main(argv=None) -> dict:
             return predict(batch["rdr_tensor"])
     else:
         eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
-                                   preprocess=preprocess)
+                                   preprocess=preprocess, multi_poses=asm.multi_poses)
     prof = start_trace(device) if args.profile else None
     try:
         detections, sec_per_frame = run_eval(

@@ -210,7 +210,7 @@ def main(argv=None):
                                              device_preprocess=args.device_preprocess)
         val_loader = BatchLoader(val_dataset, batch_size=batch_size, num_workers=num_workers)
         eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
-                                   preprocess=preprocess)
+                                   preprocess=preprocess, multi_poses=asm.multi_poses)
 
         def eval_fn(state, loader, epoch):
             dets, _ = run_eval(eval_step, loader, asm.decode_spec, device=device,

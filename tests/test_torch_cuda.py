@@ -432,3 +432,59 @@ def test_custom_ops_export_on_the_card(dev):
     roi = [0, 15, 0, 63, 0, 159]
     assert torch.equal(torch.ops.rtpose.preprocess(raw, roi, 0.0, 10.0),
                        preprocess.preprocess_reference(raw, roi, 0.0, 10.0))
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_deform_conv_card_matches_cpu(dev, mask):
+    """The deformable conv in float32 on the card against the CPU, forward
+    and gradients: the same gathers and weights; the card's contraction and
+    its scatter-add backward sum in other orders (atomics), so 1e-5 of the
+    largest magnitude.  Two card runs of the backward are compared with the
+    same tolerance, not bit for bit."""
+    from rtpose_tpu_torch.ops.deform_conv import deform_conv2d
+
+    g = torch.Generator().manual_seed(0)
+    B, H, W, C, dg = 3, 12, 20, 16, 4
+    x = torch.randn(B, H, W, C, generator=g)
+    off = torch.rand(B, H, W, dg * 18, generator=g) * 6 - 3
+    w = torch.randn(3, 3, C, 8, generator=g) / 12
+    m = torch.rand(B, H, W, dg * 9, generator=g) if mask else None
+    cot = torch.randn(B, H, W, 8, generator=g)
+
+    def run(device):
+        ts = [t.detach().to(device).requires_grad_() for t in (x, off, w)]
+        tm = None if m is None else m.detach().to(device).requires_grad_()
+        out = deform_conv2d(*ts, mask=tm, deformable_groups=dg)
+        (out * cot.to(device)).sum().backward()
+        grads = [t.grad for t in ts] + ([] if tm is None else [tm.grad])
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    want = run(torch.device("cpu"))
+    card = run(dev)
+    for a, b in zip(card, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+    for a, b in zip(run(dev), card):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+def test_multi_decode_card_matches_cpu(dev):
+    """``decode_pose_multi`` on the card against the CPU: the same peaks in
+    the same order (a plateau tie and zeros from underflowed sigmoids
+    included), keypoints to 1e-5 m, scores to 1e-6 relative (the two
+    devices' sigmoids may round one ulp apart)."""
+    from rtpose_tpu_torch.core.decode import DecodeSpec, decode_pose_multi
+
+    g = torch.Generator().manual_seed(1)
+    hm = torch.randn(3, 16, 64, 160, 1, generator=g)
+    hm[0, 3:5, 6:8, 10:12] = 9.0
+    hm[1, 0, 0, 0] = 8.0
+    hm[2] = -200.0
+    hm[2, 4, 4, 4] = 3.0
+    reg = torch.randn(3, 16, 64, 160, 45, generator=g)
+    spec = DecodeSpec(grid_zyx=(16, 64, 160), pc_range_min_xyz=(0.77, -5.03, -1.09),
+                      voxel_size_xyz=(0.0453125, 0.15703125, 0.3625))
+    for P in (2, 6):
+        kc, sc = decode_pose_multi(hm, reg, spec, P)
+        kg, sg = decode_pose_multi(hm.to(dev), reg.to(dev), spec, P)
+        torch.testing.assert_close(sg.cpu(), sc, rtol=1e-6, atol=0)
+        torch.testing.assert_close(kg.cpu(), kc, rtol=0, atol=1e-5)

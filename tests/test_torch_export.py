@@ -303,7 +303,7 @@ def test_calib_batches_are_contiguous(env, monkeypatch):
     rng = np.random.default_rng(1)
     items = [{"rdr_tensor": rng.normal(size=(4, 8, 16, 32)).astype(np.float32)
               .transpose(1, 2, 3, 0)} for _ in range(4)]
-    monkeypatch.setattr(api, "build_dataset_from_cfg", lambda cfg, split: items)
+    monkeypatch.setattr(api, "build_dataset_from_cfg", lambda cfg, split, **kw: items)
     batches = export_cli.collect_calib_batches(env["cfg"], 2, 2, "val", torch.device("cpu"))
     assert len(batches) == 2 and all(b.is_contiguous() for b in batches)
     assert torch.equal(batches[1][0], torch.from_numpy(items[2]["rdr_tensor"]))

@@ -28,6 +28,8 @@ def test_fresh_interpreter_loads_no_jax():
         "from rtpose_tpu_torch.engine import HTTPLoggerHook, ProfilerHook, make_epoch_step\n"
         "import rtpose_tpu_torch.ops.quant, rtpose_tpu_torch.export\n"
         "import rtpose_tpu_torch.tools.export, rtpose_tpu_torch.tools.int8_diag\n"
+        "import rtpose_tpu_torch.tools.gen_skel_data, rtpose_tpu_torch.data.wrappers\n"
+        "import rtpose_tpu_torch.ops.deform_conv, rtpose_tpu_torch.models.dcn_head\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -150,14 +150,22 @@ def test_cuda_device_required_unless_cpu_asked(env):
         port_test.main([env["cfg_path"], "--checkpoint", env["ckpt"]])
 
 
-@pytest.mark.parametrize("kind", ["zyx_real", "dzyx_real_roi_only"])
+GENERATOR_KINDS = {
+    "zyx_real": dict(rdr_type="zyx_real", pose_mode="skeleton"),
+    "dzyx_real_roi_only": dict(rdr_type="dzyx_real", doppler_bins=2, roi_only=True),
+    "persons_per_frame=2": dict(rdr_type="dzyx_real", doppler_bins=2, roi_only=True,
+                                pose_mode="skeleton", persons_per_frame=2),
+    "seq_offset": dict(rdr_type="zyx_real", seq_offset=48),
+    "dzyx_complex": dict(rdr_type="dzyx_complex", doppler_bins=2),
+    "dzyx_complex_roi_only": dict(rdr_type="dzyx_complex", doppler_bins=2, roi_only=True),
+}
+
+
+@pytest.mark.parametrize("kind", list(GENERATOR_KINDS))
 def test_generator_matches_jax(tmp_path, kind):
     """The port's generator writes byte-identical files for the same seed."""
-    kw = dict(num_seqs=1, frames_per_seq=1, test_frames_per_seq=1, seed=7)
-    if kind == "zyx_real":
-        kw.update(rdr_type="zyx_real", pose_mode="skeleton")
-    else:
-        kw.update(rdr_type="dzyx_real", doppler_bins=2, roi_only=True)
+    kw = dict(num_seqs=1, frames_per_seq=1, test_frames_per_seq=1, seed=7,
+              **GENERATOR_KINDS[kind])
     a, b = tmp_path / "jax", tmp_path / "port"
     ka = jax_generate(str(a), **kw)
     kb = generate_synthetic_dataset(str(b), **kw)
