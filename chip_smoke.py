@@ -79,13 +79,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      tools.test (traced); no kernel launched (complex cubes opt out of the
      card preprocess, no conv has the K3 shape);
  23. ``_skel480x2`` (RepeatDataset x2) on the training root: one epoch of
-     twice its child's steps.
+     twice its child's steps;
+ 24. the LiDAR branch (``configs/lidar/voxelnet_pose.py``, VoxelNet on voxel
+     batches) on a LiDAR-only root of the port's generator: two training
+     epochs at B=8 (the conv 6 times a step forward and 6 grad-input, no
+     preprocess), one more traced (device ms/step, idle share, the voxel
+     scatter's ``index_add_``), two fused epochs over the device cache,
+     tools.test on the checkpoint (traced, and three ``--speed_test``
+     windows), the same with the double-flip TTA (4 forwards a
+     frame), ``voxelize`` of the test clouds on the card against the CPU
+     (equal, ``voxels`` bit for bit), one frame card vs CPU (seeded
+     weights), a bf16 and an int8 tools.export artifact against the live
+     model (the conv kernel, or the int8 one, 6 times a forward).
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
 wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
-``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-23), a
+``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-24), a
 ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
 ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
 ``launches`` is its wrapper's count on its own path (eval for the
@@ -97,7 +108,8 @@ path.  The replays of a fused epoch pass no wrapper, so the fused path's
 launches are kernels counted by name in the traced fused epoch
 (``fused_trace_launches``; the conv's forward and grad-input are one kernel
 symbol and are counted together).  ``path_launches`` gives each kernel's
-count on each slice path's own runs (phases 20-23).
+count on each slice path's own runs (phases 20-24; the LiDAR path's TTA
+eval and its two artifacts too).
 """
 
 from __future__ import annotations
@@ -1535,10 +1547,12 @@ def slice_counts(tag, counts, want):
         fail(f"{tag}: launch counts {counts}, expected {full}")
 
 
-def slice_train(tag, argv, steps, per_step):
+def slice_train(tag, argv, steps, per_step, counted_steps=None):
     """One tools.train run of a slice path, launch counts reset just before
     and read just after: ``steps`` steps, finite losses, none skipped, each
-    kernel ``per_step[k]`` times a step.  Returns the trainer and its record."""
+    kernel ``per_step[k]`` times a step (over ``counted_steps`` steps where
+    the wrappers see fewer: a fused run's warm-up step and capture).
+    Returns the trainer and its record."""
     import statistics
 
     import torch
@@ -1559,15 +1573,17 @@ def slice_train(tag, argv, steps, per_step):
         fail(f"{tag}: {n} train steps, expected {steps}")
     if not all(v == v and abs(v) < float("inf") for v in losses) or any(hist["skipped"]):
         fail(f"{tag}: losses {losses}, skipped {hist['skipped']}")
-    slice_counts(tag, counts, {k: v * steps for k, v in per_step.items()})
+    slice_counts(tag, counts, {k: v * (counted_steps or steps) for k, v in per_step.items()})
     ms = [t * 1e3 for t in trainer.iter_seconds[min(2, steps - 1):]]
+    quartiles = statistics.quantiles(ms, n=4) if len(ms) > 1 else ms * 3
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{tag}] tools.train: {steps} steps in {wall:.1f} s wall, launch counts {counts}; "
-          f"ms/step (host clock, after warm-up) median {statistics.median(ms)}, spread "
-          f"{max(ms) - min(ms)}; peak device memory {peak:.2f} GB; losses "
-          f"{[round(v, 4) for v in losses]}")
+          f"ms/step (host clock, {len(ms)} steps after warm-up) median {statistics.median(ms)}, "
+          f"quartiles {quartiles[0]} / {quartiles[2]}, spread {max(ms) - min(ms)}; peak "
+          f"device memory {peak:.2f} GB; losses {[round(v, 4) for v in losses]}")
     return trainer, dict(steps=steps, wall_s=wall, launches=counts, losses=losses,
-                         ms_per_step_median=statistics.median(ms),
+                         timed_steps=len(ms), ms_per_step_median=statistics.median(ms),
+                         ms_per_step_quartiles=(quartiles[0], quartiles[2]),
                          ms_per_step_spread=max(ms) - min(ms),
                          num_positive_mean=sum(hist["num_positive"]) / steps,
                          peak_device_memory_gb=peak)
@@ -1878,6 +1894,201 @@ def phase_repeat(tmp, train_root):
     return dict(train=train, child_steps=child_steps, wall_s=wall)
 
 
+# ---- the LiDAR branch (configs/lidar/voxelnet_pose.py): VoxelNet on voxel batches
+
+LIDAR_CFG = os.path.join(REPO, "configs", "lidar", "voxelnet_pose.py")
+# train / test frames of the LiDAR root: 24 steps an epoch at B=8, a
+# 40-frame --speed_test window (the middle third of the test frames)
+LIDAR_FRAMES = (192, 120)
+LIDAR_SPEED_RUNS = 3    # --speed_test windows per eval mode: median and spread
+K3_LIDAR = 6    # the 32 -> 32 convs of hr_tiny_feat16_zyx_l4: stages 2-4, branch 1
+LIDAR_TTA_LINES = ("voxelization['cfg']['double_flip'] = True\n"
+                   "test_cfg['double_flip'] = True\n")
+
+
+def lidar_config(tmp, tag, root, extra=""):
+    """A config that runs ``configs/lidar/voxelnet_pose.py`` as shipped, reads
+    ``root`` and saves a checkpoint after every epoch."""
+    path = os.path.join(tmp, f"voxelnet_pose_{tag}.py")
+    with open(path, "w") as f:
+        f.write(f"exec(compile(open({LIDAR_CFG!r}).read(), {LIDAR_CFG!r}, 'exec'))\n"
+                f"DATASET['DIR']['ROOT_DIR'] = {root!r}\n"
+                "checkpoint_config = dict(interval=1)\n" + extra)
+    return path
+
+
+def speed_windows(tag, cfg_path, ckpt, work, frames):
+    """``LIDAR_SPEED_RUNS`` runs of ``tools.test --speed_test`` (B=1, the
+    middle third of the ``frames`` test frames, untraced): host ms per frame
+    of each window, their median and spread."""
+    import statistics
+
+    from rtpose_tpu_torch.tools import test as port_test
+
+    speed = [port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir", work, "--testset",
+                             "--speed_test"])["sec_per_frame"] * 1e3
+             for _ in range(LIDAR_SPEED_RUNS)]
+    window = (2 * frames) // 3 - frames // 3
+    med = statistics.median(speed)
+    print(f"[{tag}] speed windows of {window} frames at B=1: {speed} ms/frame; median {med}, "
+          f"spread {max(speed) - min(speed)}")
+    return dict(window_frames=window, speed_ms_per_frame=speed, ms_per_frame=med,
+                ms_per_frame_spread=max(speed) - min(speed))
+
+
+def phase_lidar(tmp, dev):
+    """The LiDAR branch at full width on a LiDAR-only root of the port's
+    generator (``with_lidar``, no radar cubes): tools.train two epochs at
+    B=8 (K3 6 times a step forward and 6 grad-input), one more traced (the
+    voxel scatter by kernel), two fused epochs over the device cache (a
+    captured CUDA graph replayed per step), tools.test on the checkpoint (traced, and
+    three ``--speed_test`` windows), the same with the double-flip TTA (4 forwards a
+    frame), ``voxelize`` of the test clouds on the card against the CPU,
+    one frame card vs CPU (seeded weights), a bf16 and an int8 tools.export
+    artifact against the live model."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import generate_synthetic_dataset
+    from rtpose_tpu_torch.engine import VOXEL_KEYS, load_checkpoint
+    from rtpose_tpu_torch.export import calibrate_predict, load_predict, make_predict_fn
+    from rtpose_tpu_torch.ops.voxelize import voxelize
+    from rtpose_tpu_torch.tools import export as port_export
+    from rtpose_tpu_torch.tools import train as port_train
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "lidar_data")
+    n_train, n_test = LIDAR_FRAMES
+    generate_synthetic_dataset(root, num_seqs=2, frames_per_seq=n_train // 2,
+                               test_frames_per_seq=n_test // 2, seed=8, pose_mode="skeleton",
+                               with_lidar=True, radar_cubes=False)
+    cfg_path = lidar_config(tmp, "lidar", root)
+    cfg = Config.fromfile(cfg_path)
+    asm = assemble(cfg)
+    if (asm.sensor, asm.voxel_shape, asm.sparse_head, asm.input_key) != (
+            "lidar", (1024, 8, 4), False, None):
+        fail(f"lidar: assembly {asm.sensor} {asm.voxel_shape} {asm.sparse_head}")
+    per_step = dict(conv3d_k3=K3_LIDAR, conv3d_k3_bwd=K3_LIDAR)
+    work = os.path.join(tmp, "lidar_work")
+    steps = n_train // 8
+    _, train = slice_train("lidar", [cfg_path, "--work_dir", work, "--seed", "0",
+                                     "--stop_epoch", "2"], 2 * steps, per_step)
+    _, train["trace"] = traced("lidar train", lambda: port_train.main(
+        [cfg_path, "--work_dir", os.path.join(tmp, "lidar_trace"), "--seed", "0",
+         "--stop_epoch", "1"]), steps, "step")
+    train["idle_share"] = 1.0 - train["trace"]["device_busy_ms"] / train["ms_per_step_median"]
+    print(f"[lidar] train: {train['ms_per_step_median']} ms/step (host clock, median of "
+          f"{train['timed_steps']} steps), device busy {train['trace']['device_busy_ms']} ms/step "
+          f"(one traced epoch of {steps} steps), idle share {train['idle_share']}; the "
+          f"voxel scatter (index_add_) {train['trace']['index_add_ms']} ms/step; its backward: "
+          f"none (the mean reader has no parameter and the voxels need no gradient)")
+
+    # fused epochs over the device-cached voxel batches: replays of one
+    # captured CUDA graph of the train step
+    fused_trainer, fused = slice_train(
+        "lidar fused", [cfg_path, "--work_dir", os.path.join(tmp, "lidar_fused"), "--seed", "0",
+                        "--stop_epoch", "2", "--device_cache", "--fuse_epochs"],
+        2 * steps, per_step, counted_steps=2)
+    es = fused_trainer.epoch_step
+    if es is None or es.graph is None or es.replays != 2 * steps:
+        fail(f"lidar fused: no captured graph, or {es and es.replays} replays for "
+             f"{2 * steps} steps")
+    fused["replays"] = es.replays
+    fused["ms_per_step_epoch2"] = fused_trainer.iter_seconds[-1] * 1e3
+    train["fused"] = fused
+    print(f"[lidar] fused epochs: {es.replays} replays of one captured step, "
+          f"{fused['ms_per_step_epoch2']} ms/step in the second epoch")
+
+    ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
+    forwards = -(-n_test // 8)
+    _, test = slice_test("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_eval"), n_test,
+                         dict(conv3d_k3=K3_LIDAR), forwards)
+    test.update(speed_windows("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_speed"),
+                              n_test))
+    tta_path = lidar_config(tmp, "lidar_tta", root, LIDAR_TTA_LINES)
+    if not assemble(Config.fromfile(tta_path)).tta_double_flip:
+        fail("lidar tta: the config's double_flip did not reach the assembly")
+    _, tta = slice_test("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_eval"),
+                        n_test, dict(conv3d_k3=K3_LIDAR), 4 * forwards)
+    tta.update(speed_windows("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_speed"),
+                             n_test))
+    print(f"[lidar] eval: {test['ms_per_frame']} ms/frame at B=1 (host clock, median of "
+          f"{LIDAR_SPEED_RUNS} windows of {test['window_frames']} frames), device "
+          f"{test['trace']['device_busy_ms']} ms/frame at B=8 ({n_test} frames traced); TTA (4 "
+          f"forwards a frame): {tta['ms_per_frame']} ms/frame, device "
+          f"{tta['trace']['device_busy_ms']} ms/frame; "
+          f"MPJPE {test['mpjpe_mm']} mm, with TTA {tta['mpjpe_mm']} mm")
+
+    # voxelize of the test clouds: the card against the CPU
+    vox_cfg = dict(cfg.voxelization["cfg"])
+    from rtpose_tpu_torch.data.pipelines import Voxelization
+    stage = Voxelization(cfg=vox_cfg)
+    ds = build_dataset_from_cfg(cfg.data, "test")
+    n_vox = 0
+    for i in range(len(ds)):
+        s = ds.samples[i]
+        pts = ds.get_points(s["seq"], s.get("lidar_frame") or s["rdr_frame"])
+        n = min(len(pts), stage.max_num_points)
+        padded = np.zeros((stage.max_num_points, pts.shape[1]), np.float32)
+        padded[:n] = pts[:n]
+        x = torch.from_numpy(padded)
+        want = voxelize(x, n, stage.test_spec)
+        got = voxelize(x.to(dev), n, stage.test_spec)
+        for k in want:
+            if not torch.equal(got[k].cpu(), want[k]):
+                fail(f"lidar voxelize: {k} of test frame {i} differs card vs cpu")
+        n_vox += int(want["num_voxels"])
+    print(f"[lidar] voxelize card == cpu on {len(ds)} test clouds (all five outputs, voxels "
+          f"bit for bit; {n_vox / len(ds)} voxels a cloud of {stage.test_spec.max_voxels})")
+
+    # one frame: the card (bf16 + kernels) against the CPU in float32
+    _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg), dev)
+    item = ds[0]
+    batch = {k: torch.from_numpy(np.asarray(item[k]))[None] for k in VOXEL_KEYS}
+    with torch.inference_mode():
+        compare = card_vs_cpu_outputs("lidar", gpu({k: v.to(dev) for k, v in batch.items()})[0],
+                                      cpu(batch)[0])
+
+    # serving: a bf16 and an int8 artifact of the checkpoint against the live model
+    live_asm = assemble(cfg)
+    live_asm.model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+    live_asm.model.to(dev).eval()
+    items = [ds[i] for i in range(8)]
+    xb = {k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items])).to(dev)
+          for k in VOXEL_KEYS}
+    serving = {}
+    for kind in ("bf16", "int8"):
+        art = os.path.join(tmp, f"lidar_{kind}.pt2")
+        extra = ["--int8", "--calib_batches", "2"] if kind == "int8" else []
+        res = port_export.main([cfg_path, "--checkpoint", ckpt, "--out", art,
+                                "--batch_size", "8", *extra])
+        scales = res["int8_scales"]
+        live = make_predict_fn(live_asm, int8_scales=scales)(xb)
+        ops.reset_launch_counts()
+        got = load_predict(art)(xb)
+        torch.cuda.synchronize()
+        want_counts = (dict(conv3d_k3_int8=K3_LIDAR) if kind == "int8"
+                       else dict(conv3d_k3=K3_LIDAR))
+        slice_counts(f"lidar {kind} artifact", ops.launch_counts(), want_counts)
+        (ka, sa, _), (kl, sl, _) = got[0], live[0]
+        err = float((ka - kl).abs().max())
+        if ka.shape != (8, 15, 3) or not torch.isfinite(ka).all() or err > SERVE_ARTIFACT_ATOL_M:
+            fail(f"lidar {kind} artifact vs live: shape {tuple(ka.shape)}, keypoints apart by "
+                 f"{err} m")
+        serving[kind] = dict(kpts_err_m=err, launches=ops.launch_counts(),
+                             int8_sites=None if scales is None else len(scales))
+        print(f"[lidar] {kind} artifact (B=8) vs live: keypoints max err {err} m"
+              + ("" if scales is None else f"; {len(scales)} int8 sites"))
+    if serving["int8"]["int8_sites"] != len(calibrate_predict(live_asm, [xb])):
+        fail("lidar int8: the artifact's sites are not the live calibration's")
+    wall = time.perf_counter() - t_phase
+    print(f"[lidar] phase wall {wall:.1f} s")
+    return dict(train=train, test=test, tta=tta, compare=compare, serving=serving,
+                voxels_per_cloud=n_vox / len(ds), wall_s=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -1924,7 +2135,8 @@ def main() -> int:
         train["profile"] = phase_train_profile(tmp, train_cfg)
         train_root = os.path.join(tmp, "train_data")
         slices = dict(skel_mp2=phase_skel_mp2(tmp, dev), dcn=phase_dcn(tmp, train_root, dev),
-                      phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root))
+                      phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root),
+                      lidar=phase_lidar(tmp, dev))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
     k1, k2, k3, k3_bwd, k3_int8 = kernels
     # the serving path's own run: the int8 artifact through tools.test
@@ -1945,13 +2157,19 @@ def main() -> int:
     k3["fused_trace_launches_with_bwd"] = ft["conv3d_k3_kernel"]
     k3_bwd["fused_trace_launches_with_fwd"] = ft["conv3d_k3_kernel"]
     # each slice path's own runs: the wrappers' counts, reset just before each
-    names = {"preprocess": k1, "conv3d_k3": k3, "conv3d_k3_bwd": k3_bwd}
+    names = {"preprocess": k1, "preprocess_single": k2, "conv3d_k3": k3,
+             "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8}
+    lidar = slices["lidar"]
     for name, k in names.items():
         k["path_launches"] = {}
         for path, r in slices.items():
             k["path_launches"][f"{path}_train"] = r["train"]["launches"][name]
             if "test" in r:
                 k["path_launches"][f"{path}_test"] = r["test"]["launches"][name]
+        k["path_launches"]["lidar_tta_test"] = lidar["tta"]["launches"][name]
+        for kind in ("bf16", "int8"):
+            k["path_launches"][f"lidar_{kind}_artifact"] = \
+                lidar["serving"][kind]["launches"][name]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))

@@ -1,10 +1,11 @@
 """High-level assembly: Config -> model + decode spec + dataset.
 
-Counterpart of ``rtpose_tpu/api.py`` for the radar path: the single point
-that interprets the reference config schema (model / assigner / test_cfg /
-data dicts).  ``resolve_device`` is the entry points' device rule: the card
-unless the caller asks for the CPU, and an error, never a silent CPU run,
-when no card is found.
+Counterpart of ``rtpose_tpu/api.py``: the single point that interprets the
+reference config schema (model / assigner / test_cfg / data dicts), for the
+radar detector (``RadarPoseNet``, a dense cube in) and the LiDAR one
+(``VoxelNet``, a voxel batch in).  ``resolve_device`` is the entry points'
+device rule: the card unless the caller asks for the CPU, and an error,
+never a silent CPU run, when no card is found.
 """
 
 from __future__ import annotations
@@ -39,17 +40,37 @@ def resolve_device(device: str | None = None) -> torch.device:
 
 @dataclasses.dataclass
 class Assembly:
-    model: Any                     # RadarPoseNet (nn.Module)
+    model: Any                     # RadarPoseNet or VoxelNet (nn.Module)
     decode_spec: DecodeSpec
     one_hm: bool
     model_cfg: Any = None          # the cfg.model dict the detector was built from
     target_spec: PoseTargetSpec = None
     input_shape_zyxc: Tuple[int, int, int, int] = None   # one model input, unbatched
+    sensor: str = "radar"          # 'radar' (dense cube) | 'lidar' (voxels)
+    voxel_shape: Tuple[int, int, int] = None   # (V, P, F) of the lidar path
+    # test_cfg double_flip: eval averages the forwards of the pipeline's
+    # {y,x,double_}flip_* voxel sets (CenterPoint TTA); lidar only
+    tta_double_flip: bool = False
 
-    def example_input(self, batch: int = 1, device=None) -> torch.Tensor:
-        """A zeros (B, Z, Y, X, C) float32 model input."""
-        return torch.zeros((batch, *self.input_shape_zyxc), dtype=torch.float32,
-                           device=device)
+    @property
+    def input_key(self):
+        """Batch key of the model input; None: the model takes the voxel
+        sub-dict (``engine.steps.VOXEL_KEYS``)."""
+        return "rdr_tensor" if self.sensor == "radar" else None
+
+    def example_input(self, batch: int = 1, device=None):
+        """A zeros model input: a (B, Z, Y, X, C) float32 cube, or the voxel
+        dict (voxels (B, V, P, F) float32, num_points_per_voxel (B, V),
+        coors (B, V, 3) and num_voxels (B,), int32)."""
+        if self.sensor == "radar":
+            return torch.zeros((batch, *self.input_shape_zyxc), dtype=torch.float32,
+                               device=device)
+        V, P, F = self.voxel_shape
+        return dict(
+            voxels=torch.zeros((batch, V, P, F), dtype=torch.float32, device=device),
+            num_points_per_voxel=torch.zeros((batch, V), dtype=torch.int32, device=device),
+            coors=torch.zeros((batch, V, 3), dtype=torch.int32, device=device),
+            num_voxels=torch.zeros((batch,), dtype=torch.int32, device=device))
 
     @property
     def head(self):
@@ -61,15 +82,17 @@ class Assembly:
         """The sparse reg-tower path: single-task, single-peak one-heatmap
         configs.  Multi-person configs run the dense step and the multi-peak
         decode; the deformable head needs the full feature map, so its
-        configs run dense too (``rtpose_tpu/api.py:40-50``)."""
-        return (self.one_hm and len(self.model_cfg["pose_head"]["tasks"]) == 1
+        configs run dense too, and so does the LiDAR detector
+        (``rtpose_tpu/api.py:40-50``)."""
+        return (self.one_hm and self.sensor == "radar"
+                and len(self.model_cfg["pose_head"]["tasks"]) == 1
                 and self.target_spec.max_poses == 1
                 and not self.model_cfg["pose_head"].get("dcn_head"))
 
     @property
     def multi_poses(self) -> int:
         """Top-P multi-person decode count (0 = single-person surface)."""
-        if self.one_hm and self.target_spec.max_poses > 1:
+        if self.one_hm and self.sensor == "radar" and self.target_spec.max_poses > 1:
             return self.target_spec.max_poses
         return 0
 
@@ -100,8 +123,6 @@ def assemble(cfg) -> Assembly:
     get = cfg.get if hasattr(cfg, "get") else cfg.__getitem__
     dataset_cfg = dict(get("DATASET"))
     model_cfg = copy.deepcopy(dict(get("model")))
-    if model_cfg.get("type") != "RadarPoseNet":
-        raise NotImplementedError(f"detector {model_cfg.get('type')!r} is not ported")
     assigner_cfg = dict(get("train_cfg")["assigner"])
     test_cfg = dict(get("test_cfg"))
     mode = get("assigner_mode") or "one_hm"
@@ -124,10 +145,24 @@ def assemble(cfg) -> Assembly:
         min_radius=int(assigner_cfg.get("min_radius", 2)),
         mode=mode,
         num_classes=len(model_cfg["pose_head"]["tasks"][0]["class_names"]))
+    sensor = "lidar" if model_cfg.get("type") == "VoxelNet" else "radar"
+    voxel_shape = None
+    if sensor == "lidar":
+        # the voxel batch's fixed shape: the train pipeline's Voxelization
+        # stage (pose.py:52-142 schema) and the reader's feature width
+        vox_cfg = next((dict(p.get("cfg", p)) for p in get("train_pipeline")
+                        if p.get("type") == "Voxelization"), {})
+        V = vox_cfg.get("max_voxel_num", 20000)
+        if isinstance(V, (list, tuple)):
+            V = V[0]
+        voxel_shape = (int(V), int(vox_cfg.get("max_points_in_voxel", 35)),
+                       int(model_cfg["reader"].get("num_input_features", 4)))
     return Assembly(model=build_detector(model_cfg), decode_spec=decode_spec,
                     one_hm=(mode == "one_hm"), model_cfg=model_cfg,
                     target_spec=target_spec,
-                    input_shape_zyxc=(*grid, input_channels(dataset_cfg)))
+                    input_shape_zyxc=(*grid, input_channels(dataset_cfg)),
+                    sensor=sensor, voxel_shape=voxel_shape,
+                    tta_double_flip=sensor == "lidar" and bool(test_cfg.get("double_flip")))
 
 
 def serving_variant(asm: Assembly, final_dtype) -> Assembly:

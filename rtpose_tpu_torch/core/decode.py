@@ -106,6 +106,36 @@ def decode_pose_sparse(hm_logits: torch.Tensor, reg_at_peak: torch.Tensor,
     return kpts, scores, labels
 
 
+# the double-flip TTA's flipped voxel sets: (name, (flip x, flip y)); the
+# pipeline writes ``{name}_*`` keys, the TTA eval step unflips each set
+TTA_FLIPS = (("yflip", (False, True)), ("xflip", (True, False)),
+             ("double_flip", (True, True)))
+
+
+def unflip_pose_preds(hm: torch.Tensor, reg: torch.Tensor, flip_x: bool, flip_y: bool):
+    """Dense head outputs computed on a flipped scene, back in the original
+    frame (the double-flip TTA's unflip; CenterPoint semantics,
+    ``rtpose_tpu/core/decode.py:119-150``).  hm (B, Z, Y, X, C), reg (B, Z,
+    Y, X, 3K) of per-joint (x, y, z) voxel offsets from the peak's integer
+    voxel.  A world flip maps continuous voxel coordinates c -> N - c but
+    integer voxels k -> N - 1 - k, so the offset on a flipped axis becomes
+    ``1 - off``, not ``-off``.  Valid for ranges symmetric about 0 on the
+    flipped axes."""
+    B = hm.shape[0]
+    spatial = hm.shape[1:4]
+    K = reg.shape[-1] // 3
+    r = reg.reshape(B, *spatial, K, 3)
+    if flip_y:
+        hm = torch.flip(hm, dims=(2,))
+        r = torch.flip(r, dims=(2,))
+        r = torch.cat([r[..., :1], 1.0 - r[..., 1:2], r[..., 2:]], dim=-1)
+    if flip_x:
+        hm = torch.flip(hm, dims=(3,))
+        r = torch.flip(r, dims=(3,))
+        r = torch.cat([1.0 - r[..., :1], r[..., 1:]], dim=-1)
+    return hm, r.reshape(B, *spatial, 3 * K)
+
+
 def top_k_lowest_index(v: torch.Tensor, k: int):
     """The ``k`` largest values of each row of ``v`` (B, N) and their
     indices, equal values lowest index first: ``jax.lax.top_k``'s order,

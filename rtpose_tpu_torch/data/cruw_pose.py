@@ -21,8 +21,12 @@ Counterpart of ``rtpose_tpu/data/cruw_pose.py`` (reference
   real/imaginary parts, ``get_cube_phase``): ROI crop only, shipped as
   (Z, Y, X, 2D) channels-last, and never preprocessed on the card.
 
-Not ported yet: the native C++ cube loader, the KITTI box-AP report and the
-LiDAR dataset.
+* ``CRUWPoseLidarDataset`` (``CRUW_POSE_Lidar_Dataset``): the LiDAR
+  branch's per-frame point clouds through the ``Preprocess`` /
+  ``Voxelization`` pipeline into fixed-shape voxel items;
+* a config's ``pipeline`` runs on every item (``data/pipelines.py``).
+
+Not ported yet: the native C++ cube loader and the KITTI box-AP report.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import numpy as np
 
 from ..core.metrics import abs_pjpe, pjpe
 from ..registry import DATASETS
+from .pipelines import Compose
+from .point_cloud import PointCloudDataset
 
 EXCLUDED_SEQS = ("2023_0718_1642", "2023_0726_1602", "2023_0726_1619", "2023_0726_1620")
 
@@ -91,17 +97,18 @@ def _arr_in_roi(arr: np.ndarray, min_max) -> Tuple[np.ndarray, int, int]:
 
 
 @DATASETS.register_module(name="CRUW_POSE_Dataset")
-class CRUWPoseDataset:
-    """Map-style dataset yielding fixed-shape numpy samples."""
+class CRUWPoseDataset(PointCloudDataset):
+    """Map-style dataset yielding fixed-shape numpy samples; the base class
+    gives the uniform aspect-group ``flag`` (reference custom.py:160-168),
+    through which a shuffled training loader batches as the JAX one does."""
 
     NUM_JOINTS = 15
+    CLASSES = ("Pedestrian",)
 
     def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
                  pipeline=None, split: str = "train", max_poses: int = 1,
                  device_preprocess: bool = False, group_by_frame: bool = False):
         ds = cfg["DATASET"]
-        if pipeline:
-            raise NotImplementedError("dataset pipelines are not ported")
         self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
         self.with_doppler = "d" in self.rdr_type
         self.is_complex = "complex" in self.rdr_type
@@ -141,10 +148,10 @@ class CRUWPoseDataset:
             os.path.join(self.root_dir, ds["DIR"]["META_FILE"]))
         self.label_file = os.path.join(self.root_dir, label_file)
         self.samples = self._load_samples(self.label_file)
-        # uniform aspect-group flags (the base class's, reference
-        # custom.py:160-168): a shuffled training loader batches through
-        # group_shard_indices, as the JAX loader does
-        self.flag = np.ones(len(self.samples), dtype=np.uint8)
+        super().__init__(root_path=self.root_dir, info_path=self.label_file, pipeline=None,
+                         test_mode=(split != "train"), class_names=class_names)
+        # an empty list keeps meaning "no pipeline"
+        self.pipeline = Compose(pipeline) if pipeline else None
 
     @staticmethod
     def _read_meta(path: str) -> Dict[str, str]:
@@ -168,11 +175,13 @@ class CRUWPoseDataset:
                 if self.group_by_frame and objs:
                     samples.append(dict(seq=seq, frame=frame,
                                         rdr_frame=objs[0]["Radar_frameID"],
+                                        lidar_frame=objs[0].get("Lidar_frameID"),
                                         poses=[o["pose"] for o in objs]))
                     continue
                 for obj in objs:
                     samples.append(dict(seq=seq, frame=frame,
                                         rdr_frame=obj["Radar_frameID"],
+                                        lidar_frame=obj.get("Lidar_frameID"),
                                         poses=[obj["pose"]]))
         return samples
 
@@ -230,6 +239,8 @@ class CRUWPoseDataset:
             item["rdr_raw"] = self.get_cube_raw(s["seq"], s["rdr_frame"])
         else:
             item["rdr_tensor"] = self.get_cube(s["seq"], s["rdr_frame"])
+        if self.pipeline is not None:
+            item = self.pipeline(item, info=self.cfg)
         return item
 
     def evaluation(self, detections: Dict[str, dict], output_dir=None,
@@ -285,3 +296,51 @@ class CRUWPoseDataset:
             total[f"PJPE_{j}"] = float(np.mean([v[f"PJPE_{j}"] for v in seq_res.values()]))
             total[f"ABS_PJPE_{j}"] = float(np.mean([v[f"ABS_PJPE_{j}"] for v in seq_res.values()]))
         return {"results": total, "seq_results": {**seq_res, "ALL": total}}, None
+
+
+@DATASETS.register_module(name="CRUW_POSE_Lidar_Dataset")
+class CRUWPoseLidarDataset(CRUWPoseDataset):
+    """The LiDAR branch of the CRUW-Pose stack (``rtpose_tpu/data/
+    cruw_pose.py:418-471``): per-frame point clouds through the pipeline's
+    Preprocess (L2R transform, optional shuffle) and Voxelization stages
+    into fixed-shape voxel items for ``VoxelNet``.  Labels, metadata, the
+    excluded sequences and the MPJPE evaluation are the radar dataset's.
+    Point files: ``ROOT_DIR/<seq_name>/<LIDAR_DIR>/<Lidar_frameID>.npy``,
+    rows (x, y, z, intensity).  Items carry the voxel keys (``*coors``, the
+    pipeline's ``*coordinates`` renamed) and no ragged point arrays."""
+
+    def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
+                 pipeline=None, split: str = "train", max_poses: int = 1):
+        super().__init__(cfg, label_file, class_names=class_names, pipeline=pipeline,
+                         split=split, max_poses=max_poses)
+        ds = cfg["DATASET"]
+        self.lidar_dirname = ds["DIR"].get("LIDAR_DIR", "os2-64")
+        self.p_l2r = np.asarray(ds.get("P_L2R", np.eye(4)), np.float32)
+
+    def get_points(self, seq: str, lidar_frame: str) -> np.ndarray:
+        path = os.path.join(self.root_dir, self.seq_id_to_name[seq], self.lidar_dirname,
+                            f"{lidar_frame}.npy")
+        return np.load(path).astype(np.float32)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        s = self.samples[idx]
+        poses = np.zeros((self.max_poses, self.NUM_JOINTS, 3), np.float32)
+        n = min(len(s["poses"]), self.max_poses)
+        for i in range(n):
+            poses[i] = np.asarray(s["poses"][i], np.float32)
+        item = {
+            "meta": dict(seq=s["seq"], frame=s["frame"], rdr_frame=s["rdr_frame"]),
+            "lidar_pc": self.get_points(s["seq"], s.get("lidar_frame") or s["rdr_frame"]),
+            "P_L2R": self.p_l2r,
+            "poses": poses,
+            "num_poses": np.int32(n),
+            "mode": self.split,
+        }
+        if self.pipeline is not None:
+            item = self.pipeline(item, info=self.cfg)
+        # the voxel layout only: rename, and drop the ragged point arrays
+        for key in [k for k in item if k.endswith("coordinates")]:
+            item[key[: -len("coordinates")] + "coors"] = item.pop(key)
+        for k in ("lidar_pc", "points", "num_points", "P_L2R", "grid_zyx"):
+            item.pop(k, None)
+        return item

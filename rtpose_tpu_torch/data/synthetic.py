@@ -1,11 +1,12 @@
-"""Synthetic CRUW-format radar dataset generator.
+"""Synthetic CRUW-format dataset generator.
 
-The radar part of ``rtpose_tpu/data/synthetic.py``: the same seed writes
-the same files (the random draws happen in the same order), so the port's
+Counterpart of ``rtpose_tpu/data/synthetic.py``: the same seed writes the
+same files (the random draws happen in the same order), so the port's
 checks need no JAX package.  Writes ``file_meta.txt``,
-``Train.json``/``Test.json`` and ``<seq>/<rdr_dir>/<frame>.npy`` cubes
-(cruw_pose.py:61-106, 167-185): an intensity blob at each keypoint over a
-noise floor, so models can fit them.
+``Train.json``/``Test.json``, ``<seq>/<rdr_dir>/<frame>.npy`` cubes
+(cruw_pose.py:61-106, 167-185: an intensity blob at each keypoint over a
+noise floor, so models can fit them) and, with ``with_lidar``, per-frame
+point clouds ``<seq>/os2-64/<frame>.npy`` sampled from the skeletons.
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ ROI1 = {"z": [-1.0875000000000021, 4.7125],
         "x": [0.7703125, 8.0203125]}
 
 DEFAULT_PELVIS_RANGE = {"x": (2.0, 7.0), "y": (-3.5, 3.5), "z": (0.8, 1.2)}
+
+# bone segments of the 15-joint skeleton (index pairs into the template)
+SKELETON_EDGES = ((0, 1), (1, 2), (2, 3), (0, 4), (4, 5), (5, 6),
+                  (0, 7), (7, 8), (8, 9), (8, 10), (10, 11), (11, 12),
+                  (8, 13), (13, 14))
 
 # Upright 15-joint skeleton, meters relative to the pelvis (x range,
 # y lateral, z up), CRUW keypoint order.
@@ -66,6 +72,32 @@ def _random_pose(rng: np.random.Generator, pelvis_range=None,
     return pose
 
 
+def _pose_point_cloud(rng: np.random.Generator, pose: np.ndarray,
+                      points_per_bone: int = 18, clutter: int = 160) -> np.ndarray:
+    """A LiDAR return set (N, 4) xyz + intensity from a skeleton pose: points
+    along each bone with surface jitter, extra returns at the joints, ground
+    and uniform clutter at low intensity.  Each joint region has its own
+    intensity level, so joints are told apart by geometry and intensity."""
+    pts = []
+    for a, b in SKELETON_EDGES:
+        t = rng.random(points_per_bone)[:, None]
+        seg = pose[a][None] * (1 - t) + pose[b][None] * t
+        seg = seg + rng.normal(scale=0.03, size=seg.shape)
+        lvl = (0.95 - 0.04 * a) * (1 - t[:, 0]) + (0.95 - 0.04 * b) * t[:, 0]
+        pts.append(np.concatenate([seg, lvl[:, None]], 1))
+    for j in range(15):
+        jp = pose[j][None] + rng.normal(scale=0.02, size=(6, 3))
+        pts.append(np.concatenate([jp, np.full((6, 1), 0.95 - 0.04 * j)], 1))
+    half = clutter // 2
+    g = np.stack([rng.uniform(0.5, 8.0, half), rng.uniform(-5.0, 5.0, half),
+                  np.full(half, -0.9) + rng.normal(scale=0.02, size=half)], 1)
+    u = np.stack([rng.uniform(0.5, 8.0, half), rng.uniform(-5.0, 5.0, half),
+                  rng.uniform(-0.9, 2.0, half)], 1)
+    lvl = rng.uniform(0.02, 0.12, (clutter, 1))
+    pts.append(np.concatenate([np.concatenate([g, u], 0), lvl], 1))
+    return np.concatenate(pts, 0).astype(np.float32)
+
+
 def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                                frames_per_seq: int = 8, doppler_bins: int = 32,
                                rdr_type: str = "dzyx_real", seed: int = 0,
@@ -74,10 +106,18 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                                z_clip=(-0.9, 2.0),
                                pose_mode: str = "gaussian",
                                test_frames_per_seq: int = None,
+                               with_lidar: bool = False,
+                               radar_cubes: bool = True,
                                persons_per_frame: int = 1,
                                seq_offset: int = 0,
                                roi_only: bool = False) -> Dict[str, list]:
     """Create the dataset under ``root``; returns {split: [sample keys]}.
+
+    ``with_lidar=True`` also writes each frame's LiDAR point cloud
+    (``<seq>/os2-64/<frame>.npy``, (N, 4) xyz + intensity in the radar
+    frame, so P_L2R = I) and records ``Lidar_frameID`` in the labels;
+    ``radar_cubes=False`` writes no radar cube (a LiDAR-only root, whose
+    labels carry ``Lidar_frameID`` always).
 
     ``persons_per_frame`` > 1 puts several people in a frame, their pelvis
     centers at least 1.2 m apart (fewer when 64 draws do not find room).
@@ -122,6 +162,9 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
         meta_lines.append(f"{seq_id},{seq_name}")
         cube_dir = os.path.join(root, seq_name, rdr_dir)
         os.makedirs(cube_dir, exist_ok=True)
+        if with_lidar:
+            lidar_dir = os.path.join(root, seq_name, "os2-64")
+            os.makedirs(lidar_dir, exist_ok=True)
         frame_counter = 0
         for split in ("Train", "Test"):
             splits[split].setdefault(seq_id, {})
@@ -139,6 +182,16 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                         poses.append(cand)
                     if len(poses) == persons_per_frame:
                         break
+                # the point clouds draw from rng before the cube does
+                if with_lidar:
+                    np.save(os.path.join(lidar_dir, f"{rdr_frame}.npy"),
+                            np.concatenate([_pose_point_cloud(rng, q) for q in poses], 0))
+                if not radar_cubes:
+                    splits[split][seq_id][frame] = [
+                        {"Radar_frameID": rdr_frame, "Lidar_frameID": rdr_frame,
+                         "pose": q.tolist()} for q in poses]
+                    keys[split].append(f"{seq_id}/{frame}/{rdr_frame}")
+                    continue
 
                 cube = rng.uniform(n0, n0 + 0.1 * (n1 - n0),
                                    size=(Z, Y, X)).astype(np.float32)
@@ -184,7 +237,9 @@ def generate_synthetic_dataset(root: str, num_seqs: int = 2,
                 np.save(os.path.join(cube_dir, f"{rdr_frame}.npy"),
                         np.ascontiguousarray(full.astype(dtype)))
                 splits[split][seq_id][frame] = [
-                    {"Radar_frameID": rdr_frame, "pose": q.tolist()} for q in poses]
+                    dict({"Radar_frameID": rdr_frame, "pose": q.tolist()},
+                         **({"Lidar_frameID": rdr_frame} if with_lidar else {}))
+                    for q in poses]
                 keys[split].append(f"{seq_id}/{frame}/{rdr_frame}")
 
     with open(os.path.join(root, "file_meta.txt"), "w") as f:

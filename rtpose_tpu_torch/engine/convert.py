@@ -1,13 +1,16 @@
 """Carry JAX parameters into the port's ``state_dict``.
 
-``state_dict_from_jax(params)`` takes the ``rtpose_tpu`` RadarPoseNet
-params tree (nested dicts of numpy arrays, with or without the top-level
-'params' key) and returns the port's state dict.  Keys follow the reference
+``state_dict_from_jax(params)`` takes the ``rtpose_tpu`` RadarPoseNet or
+VoxelNet params tree (nested dicts of numpy arrays, with or without the
+top-level 'params' key) and returns the port's state dict.  Keys follow the reference
 torch model — the names ``rtpose_tpu/engine/torch_import.py::
 build_name_map`` maps the other way, so a port checkpoint also loads back
 into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
 kx), the deformable head's 2-D kernels (ky, kx, Ci, Co) -> (Co, Ci, ky,
-kx); GroupNorm and LayerNorm ``scale`` -> ``weight``.  The deformable head
+kx), dense kernels (Ci, Co) -> (Co, Ci); GroupNorm and LayerNorm ``scale``
+-> ``weight``.  A VoxelNet's ``reader_m`` holds parameters only for
+``PillarFeatureNet``, whose ``Dense_i`` / ``LayerNorm_i`` become
+``reader.linears.i`` / ``reader.norms.i``.  The deformable head
 (``models/dcn_head.py``) keeps the flax module names, which
 ``rtpose_tpu/engine/torch_import.py`` does not know.
 
@@ -47,6 +50,11 @@ def _segment(name: str, parent: str, siblings: List[str]) -> str:
         return "backbone"
     if name == "head_m":
         return "pose_head"
+    if name == "reader_m":
+        return "reader"
+    m = re.match(r"^(Dense|LayerNorm)_(\d+)$", name)
+    if m and parent == "reader_m":
+        return f"{'linears' if m.group(1) == 'Dense' else 'norms'}.{m.group(2)}"
     if name == "shared_gn":
         return "shared_conv.0"
     if name == "shared_conv" and parent == "head_m":
@@ -74,7 +82,9 @@ def _segment(name: str, parent: str, siblings: List[str]) -> str:
 
 def _to_torch(value) -> torch.Tensor:
     a = np.array(value, dtype=np.float32)
-    if a.ndim == 5:  # conv kernel (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky, kx)
+    if a.ndim == 2:  # dense kernel (Ci, Co) -> (Co, Ci)
+        a = a.T
+    elif a.ndim == 5:  # conv kernel (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky, kx)
         a = np.transpose(a, (4, 3, 0, 1, 2))
     elif a.ndim == 4:  # 2-D conv kernel (ky, kx, Ci, Co) -> (Co, Ci, ky, kx)
         a = np.transpose(a, (3, 2, 0, 1))
@@ -82,7 +92,7 @@ def _to_torch(value) -> torch.Tensor:
 
 
 def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """flax RadarPoseNet params -> the port's state dict."""
+    """flax RadarPoseNet / VoxelNet params -> the port's state dict."""
     tree = params.get("params", params)
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
@@ -103,7 +113,8 @@ def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tenso
 
 
 def site_paths(model) -> Dict[Any, str]:
-    """{module: flax path} for every int8 site of a RadarPoseNet: each
+    """{module: flax path} for every int8 site of a RadarPoseNet or a
+    VoxelNet (the same ``backbone_m`` / ``head_m`` paths): each
     ``TorchConv3d`` and the ``HRNet3D`` wrapper (whose final-fuse resize
     sites hang below its path).  The paths are the JAX package's
     (``"/".join(module.path)``, e.g. ``backbone_m/backbone/stage2_m0/

@@ -3,7 +3,8 @@
 Counterpart of ``rtpose_tpu/engine/steps.py:31-42, 48-329``.
 Batches are dicts of tensors on the model's device:
   rdr_tensor: (B, Z, Y, X, C) float32 normalized radar cube, or
-  rdr_raw:    (B, D, Z', Y', X') ROI-cropped raw cube in its disk dtype;
+  rdr_raw:    (B, D, Z', Y', X') ROI-cropped raw cube in its disk dtype, or
+  the LiDAR detector's voxel keys (``VOXEL_KEYS``; ``input_key`` None);
   poses:      (B, max_poses, 15, 3) float32 world keypoints (training);
   num_poses:  (B,) int.
 Training targets are assigned on the device from ``poses``
@@ -29,7 +30,8 @@ import torch
 import torch.utils.checkpoint
 
 from .. import ops
-from ..core.decode import decode_pose_multi, decode_pose_sparse
+from ..core.decode import (TTA_FLIPS, decode_pose_multi, decode_pose_preds,
+                           decode_pose_sparse, unflip_pose_preds)
 from ..core.targets import PoseTargetSpec, assign_pose_targets
 from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
@@ -68,10 +70,16 @@ def preprocess_raw(raw: torch.Tensor, norm: tuple) -> torch.Tensor:
     return fused_preprocess_batch(raw, roi, float(norm[0]), float(norm[1]))
 
 
-def model_input_of(batch: Dict[str, torch.Tensor], input_key: str = "rdr_tensor",
-                   preprocess: Optional[tuple] = None) -> torch.Tensor:
-    """The model's input from a batch; a batch carrying 'rdr_raw' is
-    preprocessed on the device first."""
+VOXEL_KEYS = ("voxels", "num_points_per_voxel", "coors", "num_voxels")
+
+
+def model_input_of(batch: Dict[str, torch.Tensor], input_key: Optional[str] = "rdr_tensor",
+                   preprocess: Optional[tuple] = None):
+    """The model's input from a batch: one tensor (``input_key``), or the
+    voxel sub-dict when ``input_key`` is None (the VoxelNet batch layout).
+    A batch carrying 'rdr_raw' is preprocessed on the device first."""
+    if input_key is None:
+        return {k: batch[k] for k in VOXEL_KEYS}
     if input_key == "rdr_tensor" and "rdr_raw" in batch:
         if preprocess is None:
             raise ValueError("raw batches need the (norm_start, norm_scale) window")
@@ -89,7 +97,7 @@ def targets_from_batch(batch: Dict[str, torch.Tensor], spec: PoseTargetSpec):
                 cat=[t["cat"]], anno_pose=[t["anno_pose"]])
 
 
-def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: str = "rdr_tensor",
+def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: Optional[str] = "rdr_tensor",
                  sparse_reg: bool = False, remat: bool = False,
                  preprocess: Optional[tuple] = None,
                  loc_weight_fn: Optional[Callable] = None) -> Callable:
@@ -142,7 +150,8 @@ def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: str = "rdr_tensor
 
 
 def make_train_step(model, head, spec: PoseTargetSpec, optimizer,
-                    lr_fn: Optional[Callable] = None, input_key: str = "rdr_tensor",
+                    lr_fn: Optional[Callable] = None,
+                    input_key: Optional[str] = "rdr_tensor",
                     sparse_reg: bool = False, remat: bool = False,
                     preprocess: Optional[tuple] = None,
                     loc_weight_fn: Optional[Callable] = None) -> Callable:
@@ -306,10 +315,15 @@ def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tup
     return EpochStep(train_step, batch_size, shapes, orig_dtypes)
 
 
-def make_eval_step(model, decode_spec, input_key: str = "rdr_tensor",
+# the double-flip TTA's voxel sets: (key prefix, (flip x, flip y))
+TTA_SETS = (("", (False, False)), *((f"{name}_", flips) for name, flips in TTA_FLIPS))
+
+
+def make_eval_step(model, decode_spec, input_key: Optional[str] = "rdr_tensor",
                    sparse: bool = False,
                    preprocess: Optional[tuple] = None,
-                   multi_poses: int = 0) -> Callable:
+                   multi_poses: int = 0,
+                   tta_double_flip: bool = False) -> Callable:
     """Forward + decode; the step returns per-task (kpts, scores, labels).
 
     ``sparse=True`` (single-task one_hm configs): the reg tower runs only on
@@ -318,7 +332,39 @@ def make_eval_step(model, decode_spec, input_key: str = "rdr_tensor",
     with ``max_poses > 1``): dense forward, local maxima and the top P
     (``core.decode.decode_pose_multi``); the step returns
     ``[(kpts (B, P, K, 3), scores (B, P))]``.
+
+    ``tta_double_flip`` (the LiDAR detector, ``input_key`` None): the
+    CenterPoint double-flip TTA (``rtpose_tpu/engine/steps.py:283-322``).
+    One forward per voxel set the batch carries (the original and the
+    pipeline's ``{yflip,xflip,double_flip}_*`` sets), each set's dense
+    outputs unflipped, the heatmap probabilities and the regressions
+    averaged, the mean probability taken back to a logit, one decode.
     """
+    if tta_double_flip and input_key is None:
+        @torch.inference_mode()
+        def tta_step(batch):
+            hms, regs = None, None
+            n_sets = 0
+            for prefix, (fx, fy) in TTA_SETS:
+                if f"{prefix}voxels" not in batch:
+                    continue
+                preds = model({k: batch[f"{prefix}{k}"] for k in VOXEL_KEYS})
+                n_sets += 1
+                if hms is None:
+                    hms, regs = [0.0] * len(preds), [0.0] * len(preds)
+                for t, p in enumerate(preds):
+                    hm, reg = unflip_pose_preds(p["hm"].float(), p["reg"].float(), fx, fy)
+                    hms[t] = hms[t] + torch.sigmoid(hm)
+                    regs[t] = regs[t] + reg
+            out = []
+            for hm_sum, reg_sum in zip(hms, regs):
+                p = torch.clamp(hm_sum / n_sets, 1e-6, 1.0 - 1e-6)
+                logits = torch.log(p) - torch.log1p(-p)
+                out.append(decode_pose_preds(logits, reg_sum / n_sets, decode_spec))
+            return out
+
+        return tta_step
+
     @torch.inference_mode()
     def eval_step(batch):
         x = model_input_of(batch, input_key, preprocess)

@@ -13,6 +13,10 @@ their ``torch.ops.rtpose`` custom ops (``ops/library.py``).
     predict = load_predict("model.pt2")   # predict(cube) -> [(kpts, scores, labels)]
 
 A multi-person artifact (``multi_poses`` > 1) returns ``[(kpts, scores)]``.
+A LiDAR artifact (VoxelNet) takes the voxel dict (``engine.steps.
+VOXEL_KEYS``: voxels, num_points_per_voxel, coors, num_voxels) where a
+radar one takes the cube; the program's inputs are its four tensors in
+that order (the JAX ``export.py:64-66``).
 
 JAX's ``platforms`` becomes the one device the artifact was exported for,
 recorded in it; loading it for another device raises.
@@ -32,6 +36,7 @@ import torch.nn as nn
 
 from .core.decode import decode_pose_multi, decode_pose_sparse
 from .engine.convert import bind_sites
+from .engine.steps import VOXEL_KEYS
 from .models.layers import TorchConv3d
 from .ops import quant
 
@@ -45,15 +50,18 @@ class Predictor(nn.Module):
 
     ``model_input`` is the normalized (B, Z, Y, X, C) float32 cube, or with
     ``preprocess = (norm_start, norm_scale)`` the ROI-cropped raw (B, D, Z,
-    Y, X) cube, preprocessed on the device first.  With ``int8_scales`` the
-    forward runs inside ``quant.int8_mode``, so the int8 program is what
+    Y, X) cube, preprocessed on the device first, or with ``voxel_input``
+    the four voxel tensors (``VOXEL_KEYS`` order).  With ``int8_scales``
+    the forward runs inside ``quant.int8_mode``, so the int8 program is what
     runs, or is traced."""
 
     def __init__(self, model, decode_spec, sparse: bool, preprocess: Optional[tuple] = None,
                  int8_scales: Optional[dict] = None,
-                 int8_exclude: tuple = quant.DEFAULT_EXCLUDE, multi_poses: int = 0):
+                 int8_exclude: tuple = quant.DEFAULT_EXCLUDE, multi_poses: int = 0,
+                 voxel_input: bool = False):
         super().__init__()
         self.model = model
+        self.voxel_input = voxel_input
         self.decode_spec = decode_spec
         self.sparse = sparse
         self.multi_poses = int(multi_poses)
@@ -61,7 +69,11 @@ class Predictor(nn.Module):
         self.int8_scales = None if int8_scales is None else dict(int8_scales)
         self.int8_exclude = tuple(int8_exclude)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, *inputs: torch.Tensor):
+        if self.voxel_input:
+            x = dict(zip(VOXEL_KEYS, inputs))
+        else:
+            (x,) = inputs
         if self.preprocess is not None:
             _, _, Z, Y, X = x.shape
             x = torch.ops.rtpose.preprocess(x, [0, Z - 1, 0, Y - 1, 0, X - 1], *self.preprocess)
@@ -78,6 +90,13 @@ class Predictor(nn.Module):
             else:
                 outs = self.model.pose_head.predict(self.model(x), self.decode_spec)
         return tuple(t for task in outs for t in task)
+
+
+def _inputs(model_input) -> tuple:
+    """A model input as the predictor's positional tensors."""
+    if isinstance(model_input, dict):
+        return tuple(model_input[k] for k in VOXEL_KEYS)
+    return (model_input,)
 
 
 def _grouped(flat, multi_poses: int = 0):
@@ -107,11 +126,11 @@ def make_predict_fn(asm, preprocess: Optional[tuple] = None,
     a copy of the model)."""
     asm = _serving_model(asm, final_dtype)
     pred = Predictor(asm.model, asm.decode_spec, asm.sparse_head, preprocess,
-                     int8_scales, int8_exclude, asm.multi_poses)
+                     int8_scales, int8_exclude, asm.multi_poses, asm.input_key is None)
 
     def predict(model_input):
         with torch.inference_mode():
-            return _grouped(pred(model_input), asm.multi_poses)
+            return _grouped(pred(*_inputs(model_input)), asm.multi_poses)
 
     predict.model = asm.model
     return predict
@@ -147,27 +166,30 @@ def export_predict(asm, batch_size: int = 1, device: str = "cuda",
     asm = _serving_model(asm, final_dtype)
     model = copy.deepcopy(asm.model).to(dev).eval()     # the sites' names come along
     pred = Predictor(model, asm.decode_spec, asm.sparse_head, preprocess, int8_scales,
-                     int8_exclude, asm.multi_poses)
+                     int8_exclude, asm.multi_poses, asm.input_key is None)
     Z, Y, X, C = asm.input_shape_zyxc
     if preprocess is None:
-        example = asm.example_input(batch_size, dev)
+        example = _inputs(asm.example_input(batch_size, dev))
     else:
         # raw cubes as the loader ships them under --device_preprocess
-        example = torch.zeros((batch_size, C, Z, Y, X), dtype=torch.float16, device=dev)
+        example = (torch.zeros((batch_size, C, Z, Y, X), dtype=torch.float16, device=dev),)
     convs = [m for m in model.modules() if isinstance(m, TorchConv3d)]
     for m in convs:
         m._prepared, m._prepared_int8 = None, {}    # what the live model kept
         m.use_ops = True
     with torch.no_grad():
-        pred(example)
+        pred(*example)
         for m in convs:
             m.freeze()
-        ep = torch.export.export(pred, (example,), strict=False)
+        ep = torch.export.export(pred, example, strict=False)
     # the saved artifact would carry the zeros input (168 MB at B=8 on the flagship)
     ep.example_inputs = None
+    shapes = [list(t.shape) for t in example]
+    dtypes = [str(t.dtype).replace("torch.", "") for t in example]
     ep.rtpose_meta = dict(
-        device=dev.type, batch_size=batch_size, input_shape=list(example.shape),
-        input_dtype=str(example.dtype).replace("torch.", ""),
+        device=dev.type, batch_size=batch_size,
+        input_shape=shapes[0] if len(example) == 1 else dict(zip(VOXEL_KEYS, shapes)),
+        input_dtype=dtypes[0] if len(example) == 1 else dict(zip(VOXEL_KEYS, dtypes)),
         preprocess=None if preprocess is None else [float(v) for v in preprocess],
         int8_sites=None if int8_scales is None else len(int8_scales),
         multi_poses=asm.multi_poses,
@@ -205,7 +227,7 @@ def load_predict(path_or_bytes, device: Optional[str] = None):
 
     def predict(model_input):
         with torch.no_grad():
-            return _grouped(module(model_input), meta.get("multi_poses", 0))
+            return _grouped(module(*_inputs(model_input)), meta.get("multi_poses", 0))
 
     predict.meta = meta
     return predict

@@ -119,7 +119,7 @@ def build_detector(cfg: dict):
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random initialization: He-normal conv kernels (fan-in), zero
+    """Seeded random initialization: He-normal conv and dense kernels (fan-in), zero
     biases except the heatmap output's ``init_bias``, unit GroupNorm and
     LayerNorm scales; the deformable head's offset convs start at zero, so
     it starts as a plain conv (reference center_head.py:56-57).  Draws
@@ -127,7 +127,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     offset_convs = {m.conv_offset for m in model.modules() if isinstance(m, FeatureAdaption)}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (TorchConv3d, Conv2dNHWC, DeformConv2d)):
+            if isinstance(m, (TorchConv3d, Conv2dNHWC, DeformConv2d, nn.Linear)):
                 if m in offset_convs:
                     m.weight.zero_()
                 else:

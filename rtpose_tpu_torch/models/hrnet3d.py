@@ -16,7 +16,7 @@ Module names follow the reference torch model (``layer1``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -129,9 +129,11 @@ class HighResolutionModule(nn.Module):
 class HighResolution3DNet(nn.Module):
     """The staged HRNet trunk (hr3d.py:234-399)."""
 
-    def __init__(self, cfg: Dict[str, Any], dtype=None):
+    def __init__(self, cfg: Dict[str, Any], dtype=None, in_channels: Optional[int] = None):
         super().__init__()
-        inplanes = cfg["layer1"]["inplanes"]
+        # the arch table's width unless the detector passes its input's
+        # (flax infers it: rtpose_tpu/models/hrnet3d.py:156-157)
+        inplanes = cfg["layer1"]["inplanes"] if in_channels is None else in_channels
         c2 = cfg["stage2_inplanes"]
         self.layer1 = ResNetBlock(inplanes, c2, dtype=dtype)
         pre = [c2]
@@ -205,14 +207,15 @@ class HRNet3D(nn.Module):
 
     def __init__(self, backbone_cfg: str = "hr_tiny_feat16_zyx_l4",
                  final_conv_in: int = 192, final_conv_out: int = 128,
-                 final_fuse: str = "conat_conv", ds_factor: int = 1, dtype=None):
+                 final_fuse: str = "conat_conv", ds_factor: int = 1, dtype=None,
+                 in_channels: Optional[int] = None):
         super().__init__()
         if final_fuse not in ("top", "conat_conv"):
             raise ValueError(f"unknown final_fuse {final_fuse!r}")
         self.dtype = canonical_dtype(dtype)
         self.final_fuse = final_fuse
         cfg = MODEL_CONFIGS[backbone_cfg]
-        self.backbone = HighResolution3DNet(cfg, dtype=self.dtype)
+        self.backbone = HighResolution3DNet(cfg, dtype=self.dtype, in_channels=in_channels)
         last = cfg.get("stage4") or cfg["stage3"]
         top_ch = last["num_channels"][0]
         cin = top_ch if final_fuse == "top" else sum(last["num_channels"])

@@ -204,10 +204,16 @@ def int8_conv_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int) -> torch.Tens
     # (a column-major (K, Co) operand), the layout cuBLASLt's int8 GEMM takes
     wmat = wq.permute(0, 2, 3, 4, 1).reshape(Co, -1).contiguous()
     M, K = cols.shape
+    if K % 8:
+        # torch._int_mm takes inner widths of multiples of 8 (a LiDAR reader's
+        # 4 features): zero columns add nothing to the integer sums
+        cols = F.pad(cols, (0, -K % 8))
+        wmat = F.pad(wmat, (0, -K % 8))
+        K = cols.shape[1]
     # torch._int_mm's CUDA shape limits (aten/src/ATen/native/cuda/Blas.cpp)
-    if not (M > 16 and K % 8 == 0 and Co % 8 == 0):
-        raise ValueError(f"int8 conv: torch._int_mm needs rows > 16 and inner and output "
-                         f"widths multiples of 8, got ({M}, {K}) x ({K}, {Co})")
+    if not (M > 16 and Co % 8 == 0):
+        raise ValueError(f"int8 conv: torch._int_mm needs rows > 16 and output widths "
+                         f"multiples of 8, got ({M}, {K}) x ({K}, {Co})")
     acc = torch._int_mm(cols.contiguous(), wmat.t())
     return acc.reshape(B, Zo, Yo, Xo, Co)
 

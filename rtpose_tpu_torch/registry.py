@@ -70,3 +70,4 @@ BACKBONES = Registry("backbone")
 HEADS = Registry("head")
 DETECTORS = Registry("detector")
 DATASETS = Registry("dataset")
+PIPELINES = Registry("pipeline")

@@ -8,8 +8,9 @@ Same CLI as ``tools/export.py``, with ``--device`` in place of
         [--int8_resize] [--calib_split val] [--calib_quantile Q]] \
         [--final_dtype {bfloat16,float32}] [--device {cuda,cpu}]
 
-The predict path (forward + sparse decode) is traced with ``torch.export``
-for one static batch size on one device, the weights baked in; ``--int8``
+The predict path (forward + sparse decode, or the dense decode of the
+LiDAR config's voxel batches) is traced with ``torch.export`` for one
+static batch size on one device, the weights baked in; ``--int8``
 first calibrates activation scales on the first ``--calib_batches`` batches
 of ``--calib_split`` and bakes the int8 program.  Evaluate the artifact
 with ``python -m rtpose_tpu_torch.tools.test CONFIG --exported model.pt2``;
@@ -49,23 +50,29 @@ def parse_args(argv=None):
 
 
 def collect_calib_batches(cfg, batch_size: int, n_batches: int, split: str, device,
-                          max_poses: int = 1):
+                          max_poses: int = 1, input_key="rdr_tensor"):
     """Model inputs for activation calibration: the first ``n_batches``
     batches of ``split`` through the same host path the eval loader uses
-    (one sample per frame with ``max_poses`` > 1, as there)."""
+    (one sample per frame with ``max_poses`` > 1, as there): cubes, or with
+    ``input_key`` None the voxel dicts of the LiDAR config."""
     import numpy as np
     import torch
 
     from rtpose_tpu_torch.api import build_dataset_from_cfg
     from rtpose_tpu_torch.data import BatchLoader
+    from rtpose_tpu_torch.engine import model_input_of
 
     loader = BatchLoader(build_dataset_from_cfg(cfg.data, split, max_poses=max_poses),
-                         batch_size=batch_size,
-                         shuffle=False, drop_last=False)
+                         batch_size=batch_size, shuffle=False, drop_last=False)
+    def to_device(a):
+        # the batch's arrays may be strided views; the kernels take contiguous inputs
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     batches = []
     for batch in loader:
-        # the batch's arrays may be strided views; the kernels take contiguous inputs
-        batches.append(torch.from_numpy(np.ascontiguousarray(batch["rdr_tensor"])).to(device))
+        x = model_input_of(batch, input_key)
+        batches.append({k: to_device(v) for k, v in x.items()} if isinstance(x, dict)
+                       else to_device(x))
         if len(batches) >= n_batches:
             break
     if not batches:
@@ -91,7 +98,8 @@ def main(argv=None) -> dict:
     int8_scales = None
     if args.int8:
         batches = collect_calib_batches(cfg, args.batch_size, args.calib_batches,
-                                        args.calib_split, device, asm.target_spec.max_poses)
+                                        args.calib_split, device, asm.target_spec.max_poses,
+                                        asm.input_key)
         int8_scales = calibrate_predict(asm, batches, exclude=exclude,
                                         final_dtype=args.final_dtype,
                                         quantile=args.calib_quantile)

@@ -16,11 +16,15 @@ where only the port is installed::
     # complex cubes (hr3d_one_hm_doppler_phase.py)
     python -m rtpose_tpu_torch.tools.gen_skel_data /tmp/phase \
         --rdr_type dzyx_complex --roi_only
+    # LiDAR point clouds beside the cubes (configs/lidar/voxelnet_pose.py)
+    python -m rtpose_tpu_torch.tools.gen_skel_data /tmp/lidar --with_lidar --roi_only
 
 Each full f16 Doppler frame is ~67 MB (10.5 MB with ``--roi_only``, which
 pairs with ``DIR.CUBES_ARE_ROI=True`` in the config); complex frames are
-twice that.  ``--with_lidar`` belongs to the LiDAR branch, which the port
-does not carry.
+twice that.  ``--with_lidar`` also writes each frame's point cloud
+(``<seq>/os2-64/<frame>.npy``, ~8 KB) and its ``Lidar_frameID``; a root
+without cubes comes from ``data.generate_synthetic_dataset(...,
+with_lidar=True, radar_cubes=False)``, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def parse_args(argv=None):
     p.add_argument("--rdr_type", default="dzyx_real")
     p.add_argument("--persons_per_frame", type=int, default=1)
     p.add_argument("--with_lidar", action="store_true",
-                   help="LiDAR point clouds (not ported: refused)")
+                   help="also write per-frame LiDAR point clouds")
     p.add_argument("--roi_only", action="store_true",
                    help="write cubes pre-cropped to ROI1 (~6x less disk); pair with "
                         "DIR.CUBES_ARE_ROI=True in the config")
@@ -52,15 +56,13 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Write the root; returns {split: [sample keys]}."""
     args = parse_args(argv)
-    if args.with_lidar:
-        raise SystemExit("--with_lidar: the LiDAR branch is not ported")
     from rtpose_tpu_torch.data import generate_synthetic_dataset
 
     keys = generate_synthetic_dataset(
         args.root, num_seqs=args.num_seqs, frames_per_seq=args.frames_per_seq,
         test_frames_per_seq=args.test_frames, rdr_type=args.rdr_type, seed=args.seed,
         pose_mode=args.pose_mode, persons_per_frame=args.persons_per_frame,
-        seq_offset=args.seq_offset, roi_only=args.roi_only)
+        with_lidar=args.with_lidar, seq_offset=args.seq_offset, roi_only=args.roi_only)
     print(f"wrote {args.root}: {len(keys['Train'])} train / {len(keys['Test'])} test frames")
     return keys
 

@@ -12,6 +12,9 @@ Same CLI as ``tools/int8_diag.py``, on the port's ``.pth``, plus
 2. the MPJPE of the live (bf16) model on a test subset, then of int8 with
    every site, and with ``--groups`` of int8 on only one group of sites and
    on all but one group; with ``--quantile`` of quantile-clipped scales.
+
+It reads radar cubes: the LiDAR config is refused, as the JAX tool fails on
+it; its int8 artifact is measured with ``tools.test --exported``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,10 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     asm = assemble(cfg)
+    if asm.sensor != "radar":
+        # the JAX tool reads radar cubes only (it fails on the LiDAR config)
+        raise SystemExit("int8_diag reads radar cubes; the LiDAR config (VoxelNet) is not "
+                         "supported — measure its int8 artifact with tools.test --exported")
     asm.model.load_state_dict(load_checkpoint(resolve_checkpoint(args.checkpoint))["state_dict"])
     asm.model.to(device).eval()
 

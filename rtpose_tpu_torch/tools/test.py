@@ -19,6 +19,12 @@ Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
 artifact (``rtpose_tpu_torch.tools.export``) instead of the live model: the
 weights, the int8 program and ``final_dtype`` come baked in, the batch size
 is the artifact's, and the outputs are named after the artifact file.
+
+The LiDAR config evaluates voxel batches; with ``test_cfg.double_flip``
+(and the test pipeline's ``Voxelization.double_flip``) the live model runs
+the double-flip TTA, one forward per voxel set of a frame.  An artifact
+runs the plain forward, as the JAX CLI's does.  ``--device_preprocess`` is
+refused on it (radar cubes only).
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ def main(argv=None) -> dict:
                                       resolve_device, serving_variant)
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import BatchLoader
-    from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step,
+    from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step, model_input_of,
                                          resolve_checkpoint, run_eval, save_predictions)
     from rtpose_tpu_torch.engine.hooks import start_trace, stop_trace
 
@@ -83,6 +89,10 @@ def main(argv=None) -> dict:
     ckpt_path = resolve_checkpoint(args.checkpoint) if args.checkpoint else None
     work_dir = args.work_dir or os.path.dirname(os.path.abspath(ckpt_path or args.exported))
     asm = assemble(cfg)
+    if args.device_preprocess and asm.sensor != "radar":
+        # the JAX CLI fails here too (its LiDAR dataset takes no such argument)
+        raise SystemExit("--device_preprocess ships raw radar cubes; the LiDAR config "
+                         "(VoxelNet) reads point clouds — drop the flag")
     if args.exported:
         from rtpose_tpu_torch.export import load_predict
         predict = load_predict(args.exported, device=device.type)
@@ -114,10 +124,15 @@ def main(argv=None) -> dict:
                          num_workers=int(cfg.data.get("workers_per_gpu", 0)))
     if args.exported:
         def eval_step(batch):
-            return predict(batch["rdr_tensor"])
+            return predict(model_input_of(batch, asm.input_key))
     else:
-        eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
-                                   preprocess=preprocess, multi_poses=asm.multi_poses)
+        eval_step = make_eval_step(model, asm.decode_spec, input_key=asm.input_key,
+                                   sparse=asm.sparse_head, preprocess=preprocess,
+                                   multi_poses=asm.multi_poses,
+                                   tta_double_flip=asm.tta_double_flip)
+        if asm.tta_double_flip:
+            logger.info("double-flip TTA: averaging the unflipped forwards of every "
+                        "voxel set per frame (test_cfg.double_flip)")
     prof = start_trace(device) if args.profile else None
     try:
         detections, sec_per_frame = run_eval(

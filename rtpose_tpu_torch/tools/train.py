@@ -24,7 +24,10 @@ same chunk by chunk for a set larger than the device's memory;
 ``--fuse_epochs`` (with ``--device_cache``) runs each epoch as replays of
 one captured CUDA graph of the train step, with no Python between a step's
 operations (on the CPU: a plain loop).  The JAX CLI's ``--cache_shard`` and
-``--multihost`` belong to data parallelism and are not ported.
+``--multihost`` belong to data parallelism and are not ported.  The LiDAR
+config (``configs/lidar/voxelnet_pose.py``, VoxelNet on voxel batches)
+trains with the same flags except ``--device_preprocess`` (radar cubes
+only; refused, as the JAX CLI fails on it).
 """
 
 from __future__ import annotations
@@ -138,6 +141,10 @@ def main(argv=None):
         np.random.seed(args.seed)
 
     asm = assemble(cfg)
+    if args.device_preprocess and asm.sensor != "radar":
+        # the JAX CLI fails here too (its LiDAR dataset takes no such argument)
+        raise SystemExit("--device_preprocess ships raw radar cubes; the LiDAR config "
+                         "(VoxelNet) reads point clouds — drop the flag")
     total_epochs = args.total_epochs or int(cfg.total_epochs)
     dataset = build_dataset_from_cfg(cfg.data, "train", max_poses=asm.target_spec.max_poses,
                                      device_preprocess=args.device_preprocess)
@@ -186,7 +193,8 @@ def main(argv=None):
         logger.info(f"loc-weight schedule: base={base_w} early={args.loc_weight_early}"
                     f"@{args.loc_weight_early_steps} steps")
     train_step = make_train_step(model, asm.head, asm.target_spec, optimizer, lr_fn=lr_fn,
-                                 sparse_reg=asm.sparse_head, remat=args.remat,
+                                 input_key=asm.input_key, sparse_reg=asm.sparse_head,
+                                 remat=args.remat,
                                  preprocess=preprocess, loc_weight_fn=loc_weight_fn)
     log_cfg = dict(cfg.log_config)
     # TensorBoard scalars where the config lists the reference's hook
@@ -209,8 +217,9 @@ def main(argv=None):
                                              max_poses=asm.target_spec.max_poses,
                                              device_preprocess=args.device_preprocess)
         val_loader = BatchLoader(val_dataset, batch_size=batch_size, num_workers=num_workers)
-        eval_step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head,
-                                   preprocess=preprocess, multi_poses=asm.multi_poses)
+        eval_step = make_eval_step(model, asm.decode_spec, input_key=asm.input_key,
+                                   sparse=asm.sparse_head, preprocess=preprocess,
+                                   multi_poses=asm.multi_poses)
 
         def eval_fn(state, loader, epoch):
             dets, _ = run_eval(eval_step, loader, asm.decode_spec, device=device,

@@ -238,8 +238,7 @@ def test_group_by_frame_matches_jax(roots, monkeypatch):
     for split in ("train", "test"):
         jd = jax_dataset(jcfg.data, split, max_poses=2, device_preprocess=True)
         pd = build_dataset_from_cfg(cfg.data, split, max_poses=2, device_preprocess=True)
-        assert pd.group_by_frame and pd.samples == [
-            {k: v for k, v in s.items() if k != "lidar_frame"} for s in jd.samples]
+        assert pd.group_by_frame and pd.samples == jd.samples
         for i in range(len(jd)):
             a, b = jd[i], pd[i]
             assert int(b["num_poses"]) == int(a["num_poses"]) == 2
@@ -263,8 +262,16 @@ def test_gen_skel_data_cli_matches_jax_generator(tmp_path):
     assert files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
     for rel in files:
         assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
-    with pytest.raises(SystemExit, match="LiDAR"):
-        gen_skel_data.main([str(tmp_path / "x"), "--with_lidar"])
+    # --with_lidar writes the point clouds (and keeps the cubes), as JAX's
+    c, d = tmp_path / "jax_lidar", tmp_path / "port_lidar"
+    jax_generate(str(c), **dict(kw, persons_per_frame=1, with_lidar=True))
+    gen_skel_data.main([str(d), "--num_seqs", "2", "--frames_per_seq", "1", "--test_frames",
+                        "0", "--seed", "4", "--seq_offset", "5", "--roi_only", "--with_lidar"])
+    files = sorted(p.relative_to(c) for p in c.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(d) for p in d.rglob("*") if p.is_file())
+    assert sum(1 for rel in files if "os2-64" in str(rel)) == 2
+    for rel in files:
+        assert (c / rel).read_bytes() == (d / rel).read_bytes(), rel
 
 
 TINY_ROI = {"z": [-1.0875, 1.8125], "y": [-1.25625, 1.25625],

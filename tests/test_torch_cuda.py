@@ -13,6 +13,8 @@ grad-weight, the library's bf16 weight-gradient against the float32 one on
 the same bf16 operands, one bf16 ulp plus 2e-3 of the largest value.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -389,6 +391,28 @@ def test_int8_conv_layer_dispatch(dev):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("kernel", [1, 3])
+def test_int8_stock_route_narrow_inputs(dev, kernel):
+    """An int8 conv whose im2col width is no multiple of 8 (the LiDAR
+    reader's 4 features into layer1: 4 and 108 columns) takes
+    ``torch._int_mm`` on zero-padded columns: equal to the CPU plain route."""
+    from rtpose_tpu_torch.models.layers import TorchConv3d
+    from rtpose_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(9)
+    m = TorchConv3d(4, 16, kernel=kernel, bias=True, dtype="bfloat16")
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.1)
+        m.bias.copy_(torch.randn((16,), generator=g))
+    m.site = "c"
+    x = torch.randn((2, 4, 16, 24, 4), generator=g)
+    with torch.inference_mode(), quant.int8_mode({"c": 0.02}):
+        want = m(x)
+    m.to(dev)
+    with torch.inference_mode(), quant.int8_mode({"c": 0.02}):
+        got = m(x.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
 def test_custom_ops_export_on_the_card(dev):
     """The serving export's ops on the card: a bf16 and an int8 block traced
     with ``torch.export`` call ``rtpose::conv3d_k3`` / ``conv3d_k3_int8``
@@ -488,3 +512,82 @@ def test_multi_decode_card_matches_cpu(dev):
         kg, sg = decode_pose_multi(hm.to(dev), reg.to(dev), spec, P)
         torch.testing.assert_close(sg.cpu(), sc, rtol=1e-6, atol=0)
         torch.testing.assert_close(kg.cpu(), kc, rtol=0, atol=1e-5)
+
+
+def _lidar_points(seed, n=2048, n_valid=1700):
+    """A padded cloud in the shipped LiDAR config's range: people-like
+    clusters, clutter, points out of range, padding rows past ``n_valid``."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.tensor([0.7703125, -5.025, -1.0875])
+    hi = torch.tensor([8.0203125, 5.025, 4.7125])
+    xyz = lo + torch.rand(n, 3, generator=g) * (hi - lo)
+    xyz[:600] = torch.tensor([3.0, 0.5, 0.8]) + 0.3 * torch.randn(600, 3, generator=g)
+    xyz[600:700] = xyz[600:700] * 1.6                   # some beyond the range
+    pts = torch.cat([xyz, torch.rand(n, 1, generator=g)], 1)
+    pts[n_valid:] = 0.0
+    return pts, n_valid
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_voxelize_card_matches_cpu(dev, seed):
+    """``ops.voxelize`` at the shipped LiDAR config's spec on the card and on
+    the CPU: every output equal, ``voxels`` bit for bit."""
+    from rtpose_tpu_torch.ops.voxelize import VoxelizerSpec, voxelize
+
+    spec = VoxelizerSpec((0.7703125, -5.025, -1.0875, 8.0203125, 5.025, 4.7125),
+                         (0.0453125, 0.15703125, 0.3625), max_points=8, max_voxels=1024)
+    pts, n = _lidar_points(seed)
+    want = voxelize(pts, n, spec)
+    got = voxelize(pts.to(dev), n, spec)
+    assert int(want["num_voxels"]) > 0
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _lidar_models(dev):
+    import copy
+
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data.pipelines import Voxelization
+    from rtpose_tpu_torch.models import build_detector, init_weights
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "lidar", "voxelnet_pose.py"))
+    asm = assemble(cfg)
+    init_weights(asm.model, torch.Generator().manual_seed(0))
+    model_cfg = copy.deepcopy(dict(cfg.model))
+    model_cfg["backbone"]["dtype"] = "float32"
+    model_cfg["pose_head"]["dtype"] = "float32"
+    cpu = build_detector(model_cfg)
+    cpu.load_state_dict(asm.model.state_dict())
+    stage = Voxelization(cfg=cfg.voxelization["cfg"])
+    pts, n = _lidar_points(2)
+    item = stage({"points": pts[:n].numpy(), "mode": "test"})
+    batch = {"voxels": item["voxels"], "num_points_per_voxel": item["num_points_per_voxel"],
+             "coors": item["coordinates"], "num_voxels": item["num_voxels"]}
+    batch = {k: torch.from_numpy(v)[None] for k, v in batch.items()}
+    return asm.model.to(dev).eval(), cpu.eval(), batch
+
+
+def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
+    """One frame through the shipped LiDAR config's VoxelNet on the card
+    (bf16, the kernels) against the CPU in float32, seeded weights: logits
+    within 5 % of their range and the regression within 5 % of its largest
+    magnitude over the whole volume (``chip_smoke.py``'s ``E2E_FRAC``); the
+    forward launches the conv kernel at its six 32 -> 32 convs (stages 2-4,
+    the half-resolution branch) and no other kernel."""
+    gpu, cpu, batch = _lidar_models(dev)
+    with torch.inference_mode():
+        want = cpu(batch)[0]
+        ops.reset_launch_counts()
+        got = gpu({k: v.to(dev) for k, v in batch.items()})[0]
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 6,
+                      "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0}
+    span = (want["hm"].max() - want["hm"].min()).item()
+    torch.testing.assert_close(got["hm"].float().cpu(), want["hm"], rtol=0, atol=0.05 * span)
+    reg_max = want["reg"].abs().max().item()
+    torch.testing.assert_close(got["reg"].float().cpu(), want["reg"], rtol=0,
+                               atol=0.05 * reg_max)

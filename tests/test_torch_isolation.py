@@ -30,6 +30,10 @@ def test_fresh_interpreter_loads_no_jax():
         "import rtpose_tpu_torch.tools.export, rtpose_tpu_torch.tools.int8_diag\n"
         "import rtpose_tpu_torch.tools.gen_skel_data, rtpose_tpu_torch.data.wrappers\n"
         "import rtpose_tpu_torch.ops.deform_conv, rtpose_tpu_torch.models.dcn_head\n"
+        "import rtpose_tpu_torch.ops.voxelize, rtpose_tpu_torch.models.voxelnet\n"
+        "import rtpose_tpu_torch.models.readers, rtpose_tpu_torch.data.pipelines\n"
+        "import rtpose_tpu_torch.data.point_cloud, rtpose_tpu_torch.data.augment\n"
+        "import rtpose_tpu_torch.data.gt_sampler\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
