@@ -90,14 +90,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
      frame), ``voxelize`` of the test clouds on the card against the CPU
      (equal, ``voxels`` bit for bit), one frame card vs CPU (seeded
      weights), a bf16 and an int8 tools.export artifact against the live
-     model (the conv kernel, or the int8 one, 6 times a forward).
+     model (the conv kernel, or the int8 one, 6 times a forward);
+ 25. data parallelism: ``python -m torch.distributed.run --standalone
+     --nproc_per_node <cards>`` over this script's ``--dp_worker`` mode, one
+     rank per card (NCCL): ``tools.train --multihost --device_preprocess``
+     for two epochs at B=8 a rank (launch counts as phase 11; two
+     all-reduces a step; the per-step losses and final parameters against
+     phase 11's at one card), one more epoch of its steps traced (device
+     ms of NCCL's kernels a step, the bytes all-reduced, K1 / K3 by name);
+     the same with ``--device_cache --cache_shard --fuse_epochs`` (the
+     capture holds three collectives a step; a traced fused epoch counts
+     NCCL's kernels by name; against phase 16's run at one card), the
+     sharded cache's batches against a replicated cache's bit for bit and
+     its exchange's time; ``tools.test --multihost`` on the checkpoint:
+     every test frame gathered, MPJPE equal to the one-process
+     ``tools.test``; only rank 0 wrote logs and checkpoints; the ranks'
+     parameters equal.  NCCL launches no kernel for a one-rank in-place
+     sum, so at one card the traces hold no NCCL kernel, and none is
+     expected.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
 wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
 ``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-24), a
-``{"kernels": [...]}`` line, then the nvidia-smi line again, then
+``{"dp": ...}`` line (phase 25, rank 0's numbers), a ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
 ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
 ``launches`` is its wrapper's count on its own path (eval for the
 preprocess and forward conv kernels, training for the conv backward; the
@@ -109,7 +126,7 @@ launches are kernels counted by name in the traced fused epoch
 (``fused_trace_launches``; the conv's forward and grad-input are one kernel
 symbol and are counted together).  ``path_launches`` gives each kernel's
 count on each slice path's own runs (phases 20-24; the LiDAR path's TTA
-eval and its two artifacts too).
+eval and its two artifacts too) and on phase 25's rank 0.
 """
 
 from __future__ import annotations
@@ -2089,6 +2106,398 @@ def phase_lidar(tmp, dev):
                 voxels_per_cloud=n_vox / len(ds), wall_s=wall)
 
 
+# Phase 25: data parallelism, one process per card under torch.distributed.run
+DP_WORKER = "--dp_worker"   # chip_smoke.py --dp_worker SPEC: one rank of phase 25
+DP_TIMEOUT_S = 600
+# collectives of a train step: the positive counts, then the gradient with the
+# loss and metric shares; a sharded cache's batch exchange adds one
+DP_ALL_REDUCES_PER_STEP = 2
+EXCHANGE_CALLS = 20     # eager calls of the sharded cache's exchange, timed together
+# the gathered eval at world size 1 runs the one-process batches: equal as a
+# float; across cards each rank batches other frames together, and the bf16
+# convs may then round a frame's outputs apart (not measured yet)
+DP_EVAL_RTOL_MULTI = 1e-6
+
+
+def run_process_group(cmd, timeout):
+    """Run ``cmd`` in a session of its own, output captured; on timeout the
+    whole session is killed (torchrun and its ranks).  Returns (rc, text)."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return 124, out
+    return proc.returncode, out
+
+
+def dp_trace_summary(averages, steps):
+    """Device work of ``steps`` traced steps: busy ms, NCCL's kernels (count,
+    ms, names), the preprocess and conv kernels by name, per step."""
+    import torch
+    dev_ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    if not dev_ops:
+        fail("phase 25: a trace holds no device operation")
+    nccl = [e for e in dev_ops if "nccl" in e.key.lower()]
+    return dict(steps=steps,
+                busy_ms_per_step=sum(e.self_device_time_total for e in dev_ops) / 1e3 / steps,
+                nccl_kernels=sum(e.count for e in nccl),
+                nccl_ms_per_step=sum(e.self_device_time_total for e in nccl) / 1e3 / steps,
+                nccl_names=sorted({e.key[:100] for e in nccl}),
+                preprocess_kernels=sum(e.count for e in dev_ops if "preprocess_kernel" in e.key),
+                conv3d_k3_kernels=sum(e.count for e in dev_ops if "conv3d_k3_kernel" in e.key))
+
+
+def dp_run(tag, argv, out, rank):
+    """One ``tools.train --multihost`` run on this rank: its per-step losses,
+    host step times, the wrappers' launch counts and the collectives, reset
+    just before it; the final parameters go to ``rank<R>_<tag>_params.pt``."""
+    import torch
+    from rtpose_tpu_torch import ops, parallel
+    from rtpose_tpu_torch.tools import train as port_train
+
+    ops.reset_launch_counts()
+    parallel.reset_collective_counts()
+    t0 = time.perf_counter()
+    trainer = port_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(launches=ops.launch_counts(), collectives=parallel.collective_counts(),
+               wall_s=wall, steps=len(trainer.iter_seconds),
+               iter_ms=[t * 1e3 for t in trainer.iter_seconds],
+               losses=list(trainer.log_buffer.val_history["loss"]),
+               skipped=list(trainer.log_buffer.val_history["skipped"]))
+    params = torch.cat([q.detach().reshape(-1).float().cpu()
+                        for q in trainer.state.model.parameters()])
+    torch.save(params, os.path.join(out, f"rank{rank}_{tag}_params.pt"))
+    return trainer, rec
+
+
+def dp_worker(spec_path) -> int:
+    """One rank of phase 25 (launched by ``phase_dp`` through
+    ``torch.distributed.run``): the flagship's per-step training and a traced
+    epoch of its steps, the fused sharded-cache training and a traced fused
+    epoch, the sharded cache's batches against the replicated cache's and
+    its exchange's time, and ``tools.test --multihost``.  Writes
+    ``rank<R>.json`` beside the spec."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from rtpose_tpu_torch import ops, parallel
+    from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import DeviceCachedLoader
+    from rtpose_tpu_torch.data.loader import gather_batch
+    from rtpose_tpu_torch.engine import device_prefetch
+    from rtpose_tpu_torch.tools import test as port_test
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg_path, out = spec["cfg_path"], spec["out"]
+    rank = int(os.environ["RANK"])
+    res = dict(rank=rank)
+
+    # 25.1: per-step training (host loader), then one more epoch of its
+    # steps under the profiler (the step alone: no hook, no checkpoint)
+    argv = train_argv(cfg_path, os.path.join(out, "work"), TRAIN_EPOCHS) + ["--multihost"]
+    trainer, res["train"] = dp_run("train", argv, out, rank)
+    dev = trainer.device
+    world = parallel.process_count()
+    res["world"], res["device"] = world, str(dev)
+    loader = trainer.loader
+    loader.set_epoch(TRAIN_EPOCHS)
+    steps = 0
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in device_prefetch(loader, dev):
+            batch.pop("meta", None)
+            batch.pop("valid", None)
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            steps += 1
+        torch.cuda.synchronize()
+    res["train_trace"] = dp_trace_summary(prof.key_averages(), steps)
+    res["train_trace"]["launches"] = ops.launch_counts()
+    res["train_trace"]["skipped"] = float(metrics["skipped"])
+
+    # 25.2: fused epochs over the sharded device cache, then two more fused
+    # epochs under the profiler (the first its warm-up), as phase 17
+    argv = train_argv(cfg_path, os.path.join(out, "fused_work"), TRAIN_EPOCHS) + [
+        "--multihost", "--device_cache", "--cache_shard", "--fuse_epochs"]
+    trainer, res["fused"] = dp_run("fused", argv, out, rank)
+    es, loader = trainer.epoch_step, trainer.loader
+    if es is None or es.graph is None or loader.shard is None:
+        fail("phase 25: the sharded-cache run captured no CUDA graph")
+    res["fused"].update(replays=es.replays, launches_per_step=es.launches_per_step,
+                        collectives_per_step=es.collectives_per_step,
+                        shard=[loader.shard.lo, loader.shard.hi], cache_bytes=loader.nbytes)
+    per_epoch = len(loader)
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        for epoch in (TRAIN_EPOCHS, TRAIN_EPOCHS + 1):
+            loader.set_epoch(epoch)
+            idx = loader.fused_epoch()[0]
+            torch.cuda.synchronize()
+            time.sleep(TRACE_EDGE_S)
+            t0 = time.perf_counter()
+            _, metrics = es(trainer.state, loader.data, idx)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / per_epoch
+            time.sleep(TRACE_EDGE_S)
+            prof.step()
+    if not recorded:
+        fail("phase 25: the fused trace recorded nothing")
+    res["fused_trace"] = dp_trace_summary(recorded[0], per_epoch)
+    res["fused_trace"].update(ms_per_step=traced_ms,
+                              skipped=float(metrics["skipped"].sum()),
+                              finite=bool(torch.isfinite(metrics["loss"]).all()))
+
+    # the sharded cache's batches against a replicated cache's, one epoch;
+    # the exchange's time against the replicated cache's gather
+    cfg = Config.fromfile(cfg_path)
+    ds = build_dataset_from_cfg(cfg.data, "train", device_preprocess=True,
+                                max_poses=assemble(cfg).target_spec.max_poses)
+    repl = DeviceCachedLoader(ds, batch_size=loader.batch_size, device=dev, shuffle=True,
+                              seed=0, num_shards=world, shard_id=rank)
+    repl.set_epoch(TRAIN_EPOCHS + 2)
+    loader.set_epoch(TRAIN_EPOCHS + 2)
+    n_equal = 0
+    for a, b in zip(repl, loader):
+        for k in ("rdr_raw", "poses", "num_poses"):
+            if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+                fail(f"phase 25: the sharded cache's {k} differs from the replicated "
+                     f"cache's in batch {n_equal}")
+        n_equal += 1
+    bs = loader.batch_size
+    sel = torch.from_numpy(loader.fused_epoch()[0][:world * bs]).to(dev)
+    mine = sel[rank * bs:(rank + 1) * bs]
+    row_bytes = sum(v.shape[1] * v.element_size() for v in loader.data.values())
+    def exchange():
+        return loader.shard.exchange(loader.data, sel)
+
+    def replicated():
+        return gather_batch(repl.data, mine, bs, repl._shapes, repl._orig_dtype)
+
+    res["exchange"] = dict(
+        batches_equal=n_equal, batch_bytes=bs * row_bytes, reduced_bytes=world * bs * row_bytes,
+        device_ms=device_ms(exchange), replicated_gather_device_ms=device_ms(replicated),
+        eager_ms=wrapper_ms(exchange, iters=EXCHANGE_CALLS),
+        replicated_gather_eager_ms=wrapper_ms(replicated, iters=EXCHANGE_CALLS))
+    del repl
+
+    # 25.3: tools.test --multihost on 25.1's checkpoint
+    ckpt = os.path.join(out, "work", "checkpoints", f"epoch_{TRAIN_EPOCHS}.pth")
+    ops.reset_launch_counts()
+    parallel.reset_collective_counts()
+    got = port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir",
+                          os.path.join(out, "test"), "--testset", "--device_preprocess",
+                          "--multihost"])
+    res["test"] = dict(mpjpe=None if got["results"] is None else got["results"]["MPJPE"],
+                       keys=sorted(got["detections"]), launches=ops.launch_counts(),
+                       collectives=parallel.collective_counts())
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    # the fused epoch's graph holds NCCL collectives: free it before leaving
+    del trainer, es, loader, exchange, replicated
+    parallel.shutdown()
+    return 0
+
+
+def dp_check_counts(tag, rec, steps, launches_want, coll_want):
+    if rec["steps"] != steps:
+        fail(f"{tag}: {rec['steps']} steps, expected {steps}")
+    losses = rec["losses"]
+    if len(losses) != steps or not all(v == v and abs(v) < float("inf") for v in losses):
+        fail(f"{tag}: train losses not all finite: {losses}")
+    if any(v != 0.0 for v in rec["skipped"]):
+        fail(f"{tag}: {int(sum(rec['skipped']))} steps skipped")
+    if rec["launches"] != launches_want:
+        fail(f"{tag}: launch counts {rec['launches']}, expected {launches_want}")
+    for k, v in coll_want.items():
+        if rec["collectives"][k] != v:
+            fail(f"{tag}: {rec['collectives'][k]} {k} collectives, expected {v}")
+
+
+def dp_only_rank0_wrote(tag, work, epochs):
+    files = sorted(os.listdir(work))
+    logs = [f for f in files if f.endswith(".log.json")]
+    texts = [f for f in files if f.startswith("exp_") and f.endswith(".log")]
+    ckpts = sorted(os.listdir(os.path.join(work, "checkpoints")))
+    want_ckpts = sorted([f"epoch_{e}.pth" for e in range(1, epochs + 1)] + ["latest"])
+    if len(logs) != 1 or len(texts) != 1 or ckpts != want_ckpts:
+        fail(f"{tag}: work dir holds {files}, checkpoints {ckpts}")
+    with open(os.path.join(work, logs[0])) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(work, texts[0])) as f:
+        saves = f.read().count("saved checkpoint")
+    if [r["epoch"] for r in records] != list(range(1, epochs + 1)) or saves != epochs:
+        fail(f"{tag}: the logs hold {len(records)} JSON records and {saves} saves for "
+             f"{epochs} epochs: more than one rank wrote")
+    return dict(files=files, checkpoints=ckpts)
+
+
+def phase_dp(tmp, cfg_path, refs=None):
+    """Phase 25: ``torch.distributed.run`` with one rank per card over
+    ``dp_worker``.  ``refs``: (phase 11's run, phase 16's run, the seeded
+    parameters, phase 16's noise distance) for the comparisons at one card,
+    where the ranks' arithmetic is the one-process run's."""
+    import statistics
+
+    import torch
+
+    from rtpose_tpu_torch.tools import test as port_test
+
+    world = torch.cuda.device_count()
+    out = os.path.join(tmp, "dp")
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(cfg_path=cfg_path, out=out), f)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world), os.path.abspath(__file__), DP_WORKER, spec]
+    t0 = time.perf_counter()
+    rc, text = run_process_group(cmd, DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "ranks.log"), "w") as f:
+        f.write(text)
+    if rc != 0:
+        fail(f"phase 25: torch.distributed.run exited {rc} after {wall:.1f} s:\n{text[-4000:]}")
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(world)]
+    if [r["world"] for r in ranks] != [world] * world:
+        fail(f"phase 25: world sizes {[r['world'] for r in ranks]}")
+    print(f"[dp] {world} rank(s) on {[r['device'] for r in ranks]}: {wall:.1f} s wall")
+    per_epoch = TRAIN_FRAMES // (8 * world)
+    steps = TRAIN_EPOCHS * per_epoch
+    r0 = ranks[0]
+    n_params = None
+    for tag in ("train", "fused"):
+        params = [torch.load(os.path.join(out, f"rank{r}_{tag}_params.pt")) for r in range(world)]
+        n_params = params[0].numel()
+        if any(not torch.equal(p, params[0]) for p in params[1:]):
+            fail(f"phase 25 {tag}: the ranks' parameters differ")
+        for r in ranks:
+            r[tag]["params"] = params[0]
+    per_step = {"preprocess": steps, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * steps,
+                "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0}
+    for r in ranks:
+        dp_check_counts(f"dp train rank {r['rank']}", r["train"], steps, per_step,
+                        {"all_reduce": DP_ALL_REDUCES_PER_STEP * steps,
+                         "barrier": TRAIN_EPOCHS})
+        captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
+                    "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0}
+        two = {k: 2 * v for k, v in captured.items()}    # the warm-up step and the capture
+        # the warm-up step and the capture each issue the step's collectives
+        dp_check_counts(f"dp fused rank {r['rank']}", r["fused"], steps, two,
+                        {"all_reduce": 2 * (DP_ALL_REDUCES_PER_STEP + 1),
+                         "barrier": TRAIN_EPOCHS})
+        f = r["fused"]
+        if f["replays"] != steps or f["launches_per_step"] != captured \
+                or f["collectives_per_step"]["all_reduce"] != DP_ALL_REDUCES_PER_STEP + 1:
+            fail(f"phase 25 fused rank {r['rank']}: {f['replays']} replays, captured "
+                 f"{f['launches_per_step']} and {f['collectives_per_step']}")
+        # NCCL sums a one-rank in-place all-reduce by launching nothing
+        for tr, n, per in ((r["train_trace"], per_epoch, DP_ALL_REDUCES_PER_STEP),
+                           (r["fused_trace"], per_epoch, DP_ALL_REDUCES_PER_STEP + 1)):
+            want_nccl = per * n if world > 1 else 0
+            if tr["steps"] != n or tr["nccl_kernels"] != want_nccl \
+                    or tr["preprocess_kernels"] != n \
+                    or tr["conv3d_k3_kernels"] != 2 * K3_PER_STEP * n:
+                fail(f"phase 25 rank {r['rank']} trace: {tr}, expected {n} steps, "
+                     f"{want_nccl} NCCL kernels")
+        if r["fused_trace"]["skipped"] or not r["fused_trace"]["finite"]:
+            fail(f"phase 25 rank {r['rank']}: the traced fused epochs lost a step")
+        if r["exchange"]["batches_equal"] != per_epoch:
+            fail(f"phase 25 rank {r['rank']}: {r['exchange']['batches_equal']} batches compared")
+    for tag, work in (("dp train", "work"), ("dp fused", "fused_work")):
+        dp_only_rank0_wrote(tag, os.path.join(out, work), TRAIN_EPOCHS)
+
+    tr = r0["train"]
+    ms = tr["iter_ms"][2:]
+    median = statistics.median(ms)
+    bytes_per_step = tr["collectives"]["all_reduce_bytes"] / steps
+    fused_by_epoch = [r0["fused"]["iter_ms"][e * per_epoch] for e in range(TRAIN_EPOCHS)]
+    info = dict(world=world, steps=steps, batch_per_rank=8, wall_s=wall,
+                ms_per_step_median=median, ms_per_step_spread=max(ms) - min(ms),
+                all_reduce_bytes_per_step=bytes_per_step, params=n_params,
+                train_trace={k: v for k, v in r0["train_trace"].items()},
+                fused_ms_per_step_by_epoch=fused_by_epoch,
+                fused_trace=r0["fused_trace"], exchange=r0["exchange"],
+                collectives_per_step_fused=r0["fused"]["collectives_per_step"],
+                launches=tr["launches"], fused_launches=r0["fused"]["launches"],
+                test_launches=r0["test"]["launches"])
+    t = r0["train_trace"]
+    print(f"[dp train] {steps} steps of {8 * world} frames ({world} x 8): host ms/step median "
+          f"{median}, spread {max(ms) - min(ms)}; all-reduced {bytes_per_step} bytes a step in "
+          f"{DP_ALL_REDUCES_PER_STEP} collectives; traced epoch: device busy "
+          f"{t['busy_ms_per_step']} ms/step, NCCL kernels {t['nccl_kernels']} "
+          f"({t['nccl_ms_per_step']} ms/step; {t['nccl_names']}), K1 {t['preprocess_kernels']} "
+          f"and K3 {t['conv3d_k3_kernels']} launches over {t['steps']} steps; wrappers "
+          f"{tr['launches']}")
+    f = r0["fused_trace"]
+    print(f"[dp fused] sharded cache rows {r0['fused']['shard']} ({r0['fused']['cache_bytes']} "
+          f"bytes on rank 0), {r0['fused']['replays']} replays, captured collectives "
+          f"{r0['fused']['collectives_per_step']}; ms/step by epoch {fused_by_epoch}; traced "
+          f"epoch {f['ms_per_step']} ms/step, device busy {f['busy_ms_per_step']}, NCCL kernels "
+          f"{f['nccl_kernels']} ({f['nccl_ms_per_step']} ms/step; {f['nccl_names']}), K1 "
+          f"{f['preprocess_kernels']}, K3 {f['conv3d_k3_kernels']}")
+    x = r0["exchange"]
+    print(f"[dp exchange] {x['batches_equal']} batches equal to the replicated cache's bit for "
+          f"bit; exchange {x['device_ms']} ms of device time ({x['reduced_bytes']} bytes "
+          f"reduced for a {x['batch_bytes']}-byte batch) against the replicated gather's "
+          f"{x['replicated_gather_device_ms']}; eager, host work included: {x['eager_ms']} "
+          f"and {x['replicated_gather_eager_ms']} ms")
+
+    if refs is not None and world == 1:
+        host_run, cached_run, p0, noise_dist = refs
+        for tag, ref, name in (("train", host_run, "host loader (phase 11)"),
+                               ("fused", cached_run, "device cache per step (phase 16)")):
+            rec = r0[tag]
+            run = dict(losses=rec["losses"], params=rec["params"],
+                       epoch_means=[sum(rec["losses"][e * per_epoch:(e + 1) * per_epoch])
+                                    / per_epoch for e in range(TRAIN_EPOCHS)])
+            info[f"{tag}_vs_one_process"] = compare_runs(
+                f"dp {tag} vs {name}", run, ref, p0, noise_dist)
+    elif world > 1:
+        print(f"[dp] {world} ranks train a global batch of {8 * world}: no one-process run of "
+              "this script is its reference")
+    else:
+        print("[dp] no one-process reference run given")
+
+    # 25.3: the gathered eval against the one-process eval of the checkpoint
+    ckpt = os.path.join(out, "work", "checkpoints", f"epoch_{TRAIN_EPOCHS}.pth")
+    one = port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir",
+                          os.path.join(out, "test_one"), "--testset", "--device_preprocess"])
+    keys = sorted(one["detections"])
+    mpjpe = r0["test"]["mpjpe"]
+    if any(r["test"]["keys"] != keys for r in ranks) or len(keys) != 8:
+        fail(f"phase 25: gathered detections {[len(r['test']['keys']) for r in ranks]} keys, "
+             f"the one-process eval {len(keys)}")
+    if any(r["test"]["mpjpe"] is not None for r in ranks[1:]):
+        fail("phase 25: a rank other than 0 evaluated")
+    # each rank's share of the 8 frames is one padded batch of 8: one forward
+    want = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
+            "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0}
+    if any(r["test"]["launches"] != want for r in ranks):
+        fail(f"phase 25: tools.test launch counts {[r['test']['launches'] for r in ranks]}, "
+             f"expected {want} on each rank")
+    rel = abs(mpjpe - one["results"]["MPJPE"]) / abs(one["results"]["MPJPE"])
+    if (world == 1 and mpjpe != one["results"]["MPJPE"]) or rel > DP_EVAL_RTOL_MULTI:
+        fail(f"phase 25: gathered MPJPE {mpjpe} vs one-process {one['results']['MPJPE']}")
+    print(f"[dp test] tools.test --multihost: {len(keys)} frames gathered on {world} rank(s), "
+          f"MPJPE {mpjpe} (one process: {one['results']['MPJPE']}, rel {rel}); collectives "
+          f"{r0['test']['collectives']}, launches {r0['test']['launches']}")
+    info["test"] = dict(frames=len(keys), mpjpe=mpjpe, one_process_mpjpe=one["results"]["MPJPE"],
+                        collectives=r0["test"]["collectives"])
+    return info
+
+
 def main() -> int:
     try:
         import torch
@@ -2103,6 +2512,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if len(sys.argv) == 3 and sys.argv[1] == DP_WORKER:
+        return dp_worker(sys.argv[2])
     from rtpose_tpu_torch.api import resolve_device
 
     t_all = time.perf_counter()
@@ -2137,6 +2548,8 @@ def main() -> int:
         slices = dict(skel_mp2=phase_skel_mp2(tmp, dev), dcn=phase_dcn(tmp, train_root, dev),
                       phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root),
                       lidar=phase_lidar(tmp, dev))
+        dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
+                                       train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
     k1, k2, k3, k3_bwd, k3_int8 = kernels
     # the serving path's own run: the int8 artifact through tools.test
@@ -2170,12 +2583,18 @@ def main() -> int:
         for kind in ("bf16", "int8"):
             k["path_launches"][f"lidar_{kind}_artifact"] = \
                 lidar["serving"][kind]["launches"][name]
+        # phase 25, rank 0: the per-step run, the fused run (its warm-up step
+        # and capture) and tools.test --multihost
+        for path, counts_ in (("dp_train", dp["launches"]), ("dp_fused", dp["fused_launches"]),
+                              ("dp_test", dp["test_launches"])):
+            k["path_launches"][path] = counts_[name]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"slices": slices}))
+    print(json.dumps({"dp": dp}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ preprocess output (B, Z', Y', X', D).  The hand-written CUDA kernels live
 in ``csrc/`` and are built with ``nvcc`` at first use (``ops/build.py``).
 """
 
-from . import core, data, engine, models, ops, solver
+from . import core, data, engine, models, ops, parallel, solver
 from .api import assemble, build_dataset_from_cfg, resolve_device, serving_variant
 from .config import Config
 
-__all__ = ["core", "data", "engine", "models", "ops", "solver", "assemble",
+__all__ = ["core", "data", "engine", "models", "ops", "parallel", "solver", "assemble",
            "build_dataset_from_cfg", "resolve_device", "serving_variant", "Config"]

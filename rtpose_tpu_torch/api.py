@@ -16,6 +16,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from . import parallel
 from .core.decode import DecodeSpec
 from .core.targets import PoseTargetSpec
 from .data.cruw_pose import CubeGeometry
@@ -23,16 +24,29 @@ from .models import build_detector
 from .registry import DATASETS, build_from_cfg
 
 
-def resolve_device(device: str | None = None) -> torch.device:
+def resolve_device(device: str | None = None, multihost: bool = False) -> torch.device:
     """'cuda' (the default) or 'cpu'.  Raises when the card is asked for and
     absent.  Turns TF32 off: the head's float32 output convs would otherwise
-    run in TF32 in cuDNN and move the heatmap argmax."""
+    run in TF32 in cuDNN and move the heatmap argmax.
+
+    ``multihost`` (``--multihost``): join the torchrun job this process was
+    launched in (``parallel.init_distributed``; raises outside one), on
+    ``cuda:LOCAL_RANK``, made the current device before the group is made."""
     dev = torch.device(device or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if multihost:
+        local_rank = parallel.torchrun_env()["local_rank"]
+        if dev.type == "cuda":
+            if local_rank >= torch.cuda.device_count():
+                raise RuntimeError(f"LOCAL_RANK {local_rank}: this host has "
+                                   f"{torch.cuda.device_count()} CUDA device(s)")
+            dev = torch.device("cuda", local_rank)
+            torch.cuda.set_device(dev)
+        parallel.init_distributed(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return dev

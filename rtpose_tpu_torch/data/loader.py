@@ -37,6 +37,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import RowShard
+
 
 def group_shard_indices(flags, batch_size: int, epoch: int, shuffle: bool,
                         num_shards: int, shard_id: int) -> np.ndarray:
@@ -290,15 +292,21 @@ def _fill_rows(dataset, indices, keys, shapes, dtypes, pin: bool, first=None):
 
 
 def gather_batch(data: Dict[str, torch.Tensor], sel: torch.Tensor, bs: int,
-                 shapes: Dict[str, tuple], orig_dtype: Dict[str, torch.dtype]
-                 ) -> Dict[str, torch.Tensor]:
+                 shapes: Dict[str, tuple], orig_dtype: Dict[str, torch.dtype],
+                 shard=None) -> Dict[str, torch.Tensor]:
     """A batch gathered on the device from (N, K)-stored cache rows:
     ``index_select`` by the (bs,) int64 ``sel``, compressed keys cast back,
     each key in its sample shape.  One-byte float rows are gathered as
-    bytes (``index_select`` takes no float8 tensor on every device)."""
+    bytes (``index_select`` takes no float8 tensor on every device).
+    With ``shard`` (a ``parallel.RowShard``) ``data`` holds this rank's rows
+    of a cache split over the ranks, ``sel`` every rank's batch back to back
+    (global row indices), and the shard's exchange returns this rank's."""
+    rows = shard.exchange(data, sel) if shard is not None else None
     batch = {}
     for k, v in data.items():
-        if v.dtype.is_floating_point and v.dtype.itemsize == 1:
+        if rows is not None:
+            g = rows[k]
+        elif v.dtype.is_floating_point and v.dtype.itemsize == 1:
             g = v.view(torch.uint8).index_select(0, sel).view(v.dtype)
         else:
             g = v.index_select(0, sel)
@@ -323,6 +331,15 @@ class DeviceCachedLoader:
     ``engine.steps.make_epoch_step``).  Precomputed host targets
     (``LIST_KEYS``) are not cached: device-cached training assigns targets
     on the device from the raw poses.
+
+    ``shard_cache`` (``--cache_shard``): shard ``shard_id`` of ``num_shards``
+    (the process's rank) reads and holds only its block of rows
+    (``parallel.RowShard``), so the set a job can cache grows with the
+    ranks; ``max_bytes`` caps those rows.  Each batch is then built by the
+    shard's exchange (a collective that every rank runs in step) and equals
+    the replicated cache's bit for bit; it carries no 'meta' (a rank holds
+    the metas of its own rows only).  ``fused_epoch`` gives every rank's
+    batches of a step back to back.
     """
 
     supports_fused_epochs = True
@@ -331,7 +348,8 @@ class DeviceCachedLoader:
     def __init__(self, dataset, batch_size: int, *, device: torch.device,
                  shuffle: bool = True, drop_last: Optional[bool] = None,
                  num_shards: int = 1, shard_id: int = 0, seed: int = 0,
-                 max_bytes: Optional[int] = None, cache_dtype=None):
+                 max_bytes: Optional[int] = None, cache_dtype=None,
+                 shard_cache: bool = False):
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.shuffle = shuffle
@@ -345,17 +363,19 @@ class DeviceCachedLoader:
         self._flags = None if flags is None else np.asarray(flags)
 
         n_items = len(dataset)
-        first = dataset[0]
+        self.shard = RowShard(n_items, shard_id, num_shards) if shard_cache else None
+        lo, hi = (self.shard.lo, self.shard.hi) if shard_cache else (0, n_items)
+        first = dataset[lo]
         keys, shapes, dtypes, self._orig_dtype = _numeric_spec(first, cache_dtype)
         self._shapes = shapes
-        total = sum(n_items * _row_width(shapes[k]) * dtypes[k].itemsize for k in keys)
+        total = sum((hi - lo) * _row_width(shapes[k]) * dtypes[k].itemsize for k in keys)
         if max_bytes is not None and total > max_bytes:
             raise ValueError(
                 f"DeviceCachedLoader: dataset needs {total / 1e9:.2f} GB on "
                 f"device, over the {max_bytes / 1e9:.2f} GB cap — use "
                 "BatchLoader for datasets that do not fit on the device")
         cuda = self.device.type == "cuda"
-        rows, self.metas = _fill_rows(dataset, range(n_items), keys, shapes, dtypes,
+        rows, self.metas = _fill_rows(dataset, range(lo, hi), keys, shapes, dtypes,
                                       pin=cuda, first=first)
         self.nbytes = total
         self.n = n_items
@@ -364,12 +384,29 @@ class DeviceCachedLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def _indices(self) -> np.ndarray:
+    def _indices(self, shard_id: Optional[int] = None) -> np.ndarray:
+        shard_id = self.shard_id if shard_id is None else shard_id
         if self._flags is not None and self.shuffle:
             return group_shard_indices(self._flags, self.batch_size, self.seed + self.epoch,
-                                       self.shuffle, self.num_shards, self.shard_id)
+                                       self.shuffle, self.num_shards, shard_id)
         return shard_indices(self.n, self.seed + self.epoch, self.shuffle,
-                             self.num_shards, self.shard_id, self.drop_last)
+                             self.num_shards, shard_id, self.drop_last)
+
+    def _step_indices(self, n_batches: int) -> np.ndarray:
+        """(n_batches, rows a step): this shard's padded indices, or with a
+        sharded cache every shard's batches of a step back to back."""
+        bs = self.batch_size
+        shards = range(self.num_shards) if self.shard is not None else (self.shard_id,)
+        per = []
+        for r in shards:
+            idx = self._indices(r)
+            pad = n_batches * bs - len(idx)
+            if pad > 0:      # final short eval batch: repeat the last sample
+                idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+            else:            # drop_last: the trailing remainder is not used
+                idx = idx[: n_batches * bs]
+            per.append(idx.reshape(n_batches, bs))
+        return np.concatenate(per, axis=1)
 
     def _num_batches(self, per_shard: int) -> int:
         if self.drop_last and not (self._flags is not None and self.shuffle):
@@ -386,8 +423,10 @@ class DeviceCachedLoader:
         compressed key.  ``idx`` is None where the index stream does not fill
         ``len(self)`` whole batches (a fused epoch pads nothing)."""
         idx = self._indices()
-        n = self._num_batches(len(idx)) * self.batch_size
-        return (idx[:n] if len(idx) >= n else None), self._shapes, self._orig_dtype
+        n_batches = self._num_batches(len(idx))
+        if len(idx) < n_batches * self.batch_size:
+            return None, self._shapes, self._orig_dtype
+        return self._step_indices(n_batches).reshape(-1), self._shapes, self._orig_dtype
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = self._indices()
@@ -395,17 +434,13 @@ class DeviceCachedLoader:
         n_batches = self._num_batches(len(idx))
         # the padded permutation goes up once per epoch; each batch is then
         # work queued on the device only
-        pad = n_batches * bs - len(idx)
-        if pad > 0:      # final short eval batch: repeat the last sample
-            idx_padded = np.concatenate([idx, np.repeat(idx[-1:], pad)])
-        else:            # drop_last: the trailing remainder is not used
-            idx_padded = idx[: n_batches * bs]
-        idx_dev = torch.from_numpy(idx_padded.astype(np.int64)).to(self.device)
+        steps = self._step_indices(n_batches)
+        idx_dev = torch.from_numpy(steps.astype(np.int64)).to(self.device)
         for b in range(n_batches):
-            sel = idx_padded[b * bs: (b + 1) * bs]
-            batch: Dict[str, Any] = gather_batch(self.data, idx_dev[b * bs: (b + 1) * bs],
-                                                 bs, self._shapes, self._orig_dtype)
-            batch["meta"] = [self.metas[int(i)] for i in sel]
+            batch: Dict[str, Any] = gather_batch(self.data, idx_dev[b], bs, self._shapes,
+                                                 self._orig_dtype, self.shard)
+            if self.shard is None:
+                batch["meta"] = [self.metas[int(i)] for i in steps[b]]
             batch["valid"] = np.int32(min(bs, len(idx) - b * bs))
             yield batch
 

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import parallel
 from .convert import load_checkpoint, save_checkpoint as save_pth
 
 LATEST = "latest"
@@ -27,17 +28,21 @@ def checkpoint_dir(work_dir: str) -> str:
 
 def save_training_checkpoint(work_dir: str, model: torch.nn.Module, optimizer,
                              epoch: int, step: int, meta: Optional[dict] = None) -> str:
-    """Write ``epoch_<epoch>.pth`` and point ``latest`` at it."""
+    """Write ``epoch_<epoch>.pth`` and point ``latest`` at it; returns its
+    path.  Under a process group only rank 0 writes (the ranks hold the
+    same state), and every rank returns after the write (a barrier)."""
     base = checkpoint_dir(work_dir)
-    os.makedirs(base, exist_ok=True)
     name = f"epoch_{epoch}.pth"
     path = os.path.join(base, name)
-    tmp = f"{path}.tmp"
-    save_pth(tmp, model.state_dict(), meta=dict(meta or {}, epoch=epoch, step=step),
-             optimizer=optimizer.state_dict())
-    os.replace(tmp, path)
-    with open(os.path.join(base, LATEST), "w") as f:
-        f.write(name)
+    if parallel.process_index() == 0:
+        os.makedirs(base, exist_ok=True)
+        tmp = f"{path}.tmp"
+        save_pth(tmp, model.state_dict(), meta=dict(meta or {}, epoch=epoch, step=step),
+                 optimizer=optimizer.state_dict())
+        os.replace(tmp, path)
+        with open(os.path.join(base, LATEST), "w") as f:
+            f.write(name)
+    parallel.barrier()
     return path
 
 

@@ -4,7 +4,9 @@ Counterpart of ``rtpose_tpu/engine/evaluator.py`` (reference
 ``tools/test.py:178-252``): iterate the eval loader, decode on the device,
 accumulate detections keyed ``seq/frame/rdr_frame``, time the middle third
 of the batches with ``torch.cuda.synchronize()`` at the window edges, and
-hand the dict to ``dataset.evaluation``.
+hand the dict to ``dataset.evaluation``.  Under a process group each rank
+evaluates its shard of the frames and the detections of every rank are
+gathered and merged by key (``rtpose_tpu/engine/evaluator.py:134-137``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..core.decode import post_process_pose, post_process_pose_multi
 
 
@@ -107,7 +110,14 @@ def run_eval(eval_step: Callable, loader, decode_spec, *, device: torch.device,
     The timed window covers host load + H2D + forward/decode + host
     post-processing of the middle third of the batches — the end-to-end
     per-frame cost the reference times with cuda.synchronize
-    (tools/test.py:186-201)."""
+    (tools/test.py:186-201).  The time is this rank's, over its own frames.
+
+    Under a process group the detections are every rank's, gathered and
+    merged by key (also at world size 1), so the loader's wrap-around
+    padding, which repeats frames across the ranks, adds none.  They merge
+    in the order of the unshuffled strided shards (rank r's i-th frame
+    before rank r + 1's), which is the dataset's own order, so the
+    evaluation sums in the order of a one-process run."""
     cuda = device.type == "cuda"
     detections: Dict[str, dict] = {}
     n_batches = len(loader)
@@ -160,6 +170,13 @@ def run_eval(eval_step: Callable, loader, decode_spec, *, device: torch.device,
         if logger:
             logger.info(f"Total time per frame: {sec_per_frame:.6f}s "
                         f"({1.0 / sec_per_frame:.1f} frames/s)")
+    if parallel.is_distributed():
+        parts = [list(p.items()) for p in parallel.all_gather_objects(detections)]
+        detections = {}
+        for i in range(max(len(p) for p in parts)):
+            for p in parts:
+                if i < len(p):
+                    detections.setdefault(*p[i])
     return detections, sec_per_frame
 
 

@@ -78,7 +78,8 @@ class SamplerSeedHook(Hook):
 
 class LoggerHook(Hook):
     """Interval text / JSON / TensorBoard logging; reads the deferred device
-    metrics only at logging time (one device-to-host copy per interval)."""
+    metrics only at logging time (one device-to-host copy per interval).
+    Every rank reads them; only rank 0 writes (``Trainer.emit_log``)."""
 
     priority = PRIORITIES["VERY_LOW"]
 
@@ -122,6 +123,8 @@ class HTTPLoggerHook(Hook):
         if not (self.every_n_inner_iters(trainer, self.interval) or self.end_of_epoch(trainer)):
             return
         trainer.flush_metrics()
+        if not trainer.is_writer:     # one rank posts the job's (global) metrics
+            return
         metrics = {k: float(np.mean(v)) for k, v in trainer.log_buffer.val_history.items()
                    if v and isinstance(v[-1], (int, float))}
         try:
@@ -135,7 +138,8 @@ class HTTPLoggerHook(Hook):
 
 class CheckpointHook(Hook):
     """Every-N-epochs checkpoint, and always at the final epoch
-    (hooks/checkpoint.py:5-21)."""
+    (hooks/checkpoint.py:5-21); rank 0 writes it
+    (``save_training_checkpoint``)."""
 
     priority = PRIORITIES["LOWEST"]
 

@@ -19,6 +19,13 @@ changes (parameters, moments, both step counts) it changes in place, and it
 copies nothing from the host, so a step can be captured in a CUDA graph:
 ``make_epoch_step`` runs a whole epoch over a device-cached dataset as
 replays of one captured step.
+
+Under a process group (data parallelism, ``parallel``) the train step is
+the gradient of the global batch's loss: the losses divide by the global
+positive counts, each rank back-propagates its additive share, and the
+flat gradient is summed over the ranks together with the loss and metric
+shares, so every rank takes the same clipped update, or skips the same
+step.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.utils.checkpoint
 
-from .. import ops
+from .. import ops, parallel
 from ..core.decode import (TTA_FLIPS, decode_pose_multi, decode_pose_preds,
                            decode_pose_sparse, unflip_pose_preds)
 from ..core.targets import PoseTargetSpec, assign_pose_targets
@@ -114,31 +121,42 @@ def make_loss_fn(model, head, spec: PoseTargetSpec, input_key: Optional[str] = "
     numbers, and a graph capture refuses the read).
     ``loc_weight_fn``: ``step -> weight`` replacing ``head.weight`` in
     total = hm_loss + w(step) * loc_loss.
+
+    ``loss_fn(batch, step, count_reduce)``: ``count_reduce`` maps the
+    batch's per-task positive counts (T,) to those of the global batch
+    (data parallelism: their sum over the ranks); the losses normalize by
+    those, and the result is this batch's additive share of the global
+    batch's loss.
     """
-    def sparse_losses(x, example):
+    def sparse_losses(x, example, num_pos):
         ind, mask = example["ind"][0], example["mask"][0]
+        n = None if num_pos is None else num_pos[0]
         hm_logits, reg_at_ind = model.forward_sparse_train(x, ind)
         hm_loss = fast_focal_loss_logits(hm_logits, example["hm"][0], ind, mask,
-                                         example["cat"][0])
-        rl = masked_l1(reg_at_ind.float(), mask, example["anno_pose"][0])
+                                         example["cat"][0], n)
+        rl = masked_l1(reg_at_ind.float(), mask, example["anno_pose"][0], n)
         loc_loss = torch.sum(rl * head.code_w)
         return {"loss": [hm_loss + head.weight * loc_loss], "hm_loss": [hm_loss],
                 "loc_loss": [loc_loss], "loc_loss_elem": [rl],
                 "num_positive": [mask.float().sum()]}
 
-    def compute_losses(x, example):
+    def compute_losses(x, example, num_pos):
         if sparse_reg:
-            return sparse_losses(x, example)
-        return head.loss(example, model(x))
+            return sparse_losses(x, example, num_pos)
+        return head.loss(example, model(x), num_pos)
 
-    def loss_fn(batch, step):
+    def loss_fn(batch, step, count_reduce: Optional[Callable] = None):
         example = targets_from_batch(batch, spec)
+        num_pos = None
+        if count_reduce is not None:
+            num_pos = count_reduce(torch.stack([m.float().sum() for m in example["mask"]]))
         x = model_input_of(batch, input_key, preprocess)
         if remat:
             losses = torch.utils.checkpoint.checkpoint(
-                compute_losses, x, example, use_reentrant=False, preserve_rng_state=False)
+                compute_losses, x, example, num_pos, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            losses = compute_losses(x, example)
+            losses = compute_losses(x, example, num_pos)
         if loc_weight_fn is None:
             total = torch.stack(losses["loss"]).sum()
         else:
@@ -160,30 +178,43 @@ def make_train_step(model, head, spec: PoseTargetSpec, optimizer,
     moments and the optimizer's count when the loss is not finite.  The
     metrics are device tensors: loss, hm_loss, loc_loss, num_positive,
     grad_norm (before clipping), skipped, loc_loss_elem, and lr /
-    loc_weight where their functions are given (at the global step)."""
+    loc_weight where their functions are given (at the global step).
+
+    Built under a process group (``parallel.is_distributed()``), the step
+    is the data-parallel one, with two collectives: the positive counts
+    summed before the forward, then one sum of the flat gradient with the
+    loss and metric shares appended; the guard, the norm, the clip and Adam
+    see the global values, and the metrics are the global batch's."""
     loss_fn = make_loss_fn(model, head, spec, input_key, sparse_reg, remat,
                            preprocess, loc_weight_fn)
     params = [p for p in model.parameters() if p.requires_grad]
+    data_parallel = parallel.is_distributed()
+    n_grad = sum(optimizer.sizes)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("train_step: the state holds another model or optimizer")
         for p in params:
             p.grad = None
-        loss, losses = loss_fn(batch, state.step)
+        loss, losses = loss_fn(batch, state.step,
+                               parallel.all_reduce_sum_ if data_parallel else None)
         loss.backward()
-        finite = torch.isfinite(loss.detach())
-        grad_norm = optimizer.step(finite=finite)
+        terms = [loss.detach(), torch.stack(losses["hm_loss"]).sum().detach(),
+                 torch.stack(losses["loc_loss"]).sum().detach(),
+                 torch.stack(losses["num_positive"]).sum().detach(),
+                 losses["loc_loss_elem"][0].detach()]
+        grad = None
+        if data_parallel:   # the ranks' gradients and shares, summed in one buffer
+            total = parallel.all_reduce_sum_(optimizer.flat_grad(*(t.reshape(-1) for t in terms)))
+            grad, glob = total[:n_grad], total[n_grad:]
+            terms = [glob[0], glob[1], glob[2], glob[3], glob[4:]]
+        finite = torch.isfinite(terms[0])
+        grad_norm = optimizer.step(finite=finite, grad=grad)
         for p in params:
             p.grad = None
-        metrics = dict(
-            loss=loss.detach(),
-            hm_loss=torch.stack(losses["hm_loss"]).sum().detach(),
-            loc_loss=torch.stack(losses["loc_loss"]).sum().detach(),
-            num_positive=torch.stack(losses["num_positive"]).sum().detach(),
-            grad_norm=grad_norm,
-            skipped=(~finite).to(torch.float32),
-            loc_loss_elem=losses["loc_loss_elem"][0].detach())
+        metrics = dict(loss=terms[0], hm_loss=terms[1], loc_loss=terms[2],
+                       num_positive=terms[3], grad_norm=grad_norm,
+                       skipped=(~finite).to(torch.float32), loc_loss_elem=terms[4])
         if lr_fn is not None:
             metrics["lr"] = lr_fn(state.step)
         if loc_weight_fn is not None:
@@ -223,17 +254,28 @@ class EpochStep:
     The buffers are those of the first call: later calls must bring the same
     state, the same ``data`` tensors and as many indices, and the returned
     metrics are views of buffers that the next epoch overwrites.
+
+    ``shard`` (a ``parallel.RowShard``): ``data`` holds this rank's rows of a
+    cache split over the ranks, ``idx`` every rank's batches of a step back
+    to back (``rows_per_step = world x batch_size`` indices a step), and a
+    step builds this rank's batch with the shard's exchange, a collective
+    that the graph captures with the step's own.  ``collectives_per_step``
+    holds what ``parallel.collective_counts`` counted while the step was
+    captured, as ``launches_per_step`` does for the kernels.
     """
 
     def __init__(self, train_step: Callable, batch_size: int, shapes: Dict[str, tuple],
-                 orig_dtypes: Dict[str, torch.dtype]):
+                 orig_dtypes: Dict[str, torch.dtype], shard=None):
         self.train_step = train_step
         self.batch_size = batch_size
         self.shapes = shapes
         self.orig_dtypes = orig_dtypes
+        self.shard = shard
+        self.rows_per_step = batch_size * (shard.world if shard is not None else 1)
         self.replays = 0
         self.graph = None
         self.launches_per_step: Dict[str, int] = {}
+        self.collectives_per_step: Dict[str, int] = {}
         self.scalar_keys: List[str] = []
         self.scalars = None                             # (n_steps, n_scalars)
         self.stacked: Dict[str, torch.Tensor] = {}      # the other metrics, (n_steps, ...)
@@ -242,13 +284,14 @@ class EpochStep:
     def _setup(self, state: TrainState, data: Dict[str, torch.Tensor], n_steps: int):
         dev = state.step.device
         self._state, self._data, self._n = state, dict(data), n_steps
-        self.idx = torch.zeros((n_steps, self.batch_size), dtype=torch.int64, device=dev)
+        self.idx = torch.zeros((n_steps, self.rows_per_step), dtype=torch.int64, device=dev)
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
 
     def _one_step(self):
         row = self.counter.view(1)
         sel = self.idx.index_select(0, row)[0]
-        batch = gather_batch(self._data, sel, self.batch_size, self.shapes, self.orig_dtypes)
+        batch = gather_batch(self._data, sel, self.batch_size, self.shapes, self.orig_dtypes,
+                             self.shard)
         _, metrics = self.train_step(self._state, batch)
         if self.scalars is None:    # the first step ever run: outside any capture
             self.scalar_keys = [k for k, v in metrics.items() if v.dim() == 0]
@@ -277,14 +320,16 @@ class EpochStep:
         for t, s in zip(state.tensors(), saved):
             t.copy_(s)
         self.counter.zero_()
-        warm = ops.launch_counts()
+        warm, warm_coll = ops.launch_counts(), parallel.collective_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self._one_step()
         self.launches_per_step = {k: v - warm[k] for k, v in ops.launch_counts().items()}
+        self.collectives_per_step = {k: v - warm_coll[k]
+                                     for k, v in parallel.collective_counts().items()}
 
     def __call__(self, state: TrainState, data: Dict[str, torch.Tensor], idx):
-        idx = torch.as_tensor(idx).to(torch.int64).reshape(-1, self.batch_size)
+        idx = torch.as_tensor(idx).to(torch.int64).reshape(-1, self.rows_per_step)
         if self._state is None:
             self._setup(state, data, idx.shape[0])
         elif (state is not self._state or idx.shape[0] != self._n
@@ -309,10 +354,10 @@ class EpochStep:
 
 
 def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tuple],
-                    orig_dtypes: Dict[str, torch.dtype]) -> EpochStep:
+                    orig_dtypes: Dict[str, torch.dtype], shard=None) -> EpochStep:
     """A whole epoch of device-cached batches as one call (the JAX package's
     ``lax.scan`` over ``train_step``): see ``EpochStep``."""
-    return EpochStep(train_step, batch_size, shapes, orig_dtypes)
+    return EpochStep(train_step, batch_size, shapes, orig_dtypes, shard)
 
 
 # the double-flip TTA's voxel sets: (key prefix, (flip x, flip y))

@@ -16,6 +16,16 @@ next step boundary and raises ``Preempted`` (caught in ``run``).
 ``steps.make_epoch_step`` — on the card, replays of one captured CUDA graph
 of the train step — with one metric read per epoch; iteration hooks do not
 fire, epoch hooks and interval logging do.
+
+Under a process group (data parallelism, ``parallel``) every rank runs this
+loop on its shard of each global batch and holds the same state: rank 0
+broadcasts it after a resume, and only rank 0 writes the JSON log,
+TensorBoard scalars and checkpoints (the other ranks wait at a barrier
+after each save, so a resume finds the file).  The preemption handler is
+each rank's own, as in the JAX package: a scheduler signals every rank of
+the job, and each checkpoints at its next step boundary; a signal that
+reached one rank only would leave the others waiting in that step's
+collectives.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from .. import parallel
 from .checkpoint import load_training_checkpoint, save_training_checkpoint
 from .evaluator import device_prefetch
 from .hooks import CheckpointHook, Hook, LoggerHook, SamplerSeedHook
@@ -117,8 +128,10 @@ class Trainer:
         # epoch gives each of its steps the epoch's time over its steps
         self.iter_seconds: List[float] = []
         self.log_buffer = LogBuffer()
+        # logs and checkpoints are rank 0's (the only rank without a group)
+        self.is_writer = parallel.process_index() == 0
         self.tb = (TensorboardWriter(os.path.join(self.work_dir, "tf_logs"))
-                   if enable_tensorboard else None)
+                   if enable_tensorboard and self.is_writer else None)
         self.json_log = os.path.join(self.work_dir,
                                      f"{time.strftime('%Y%m%d_%H%M%S')}.log.json")
         self._pending: List[Dict[str, torch.Tensor]] = []
@@ -148,10 +161,12 @@ class Trainer:
             getattr(h, event)(self)
 
     def resume(self, path: str):
-        """Restore parameters, optimizer moments and both step counts."""
+        """Restore parameters, optimizer moments and both step counts (every
+        rank loads; rank 0's state is then broadcast)."""
         ckpt = load_training_checkpoint(path)
         self.state.model.load_state_dict(ckpt["state_dict"])
         self.state.optimizer.load_state_dict(ckpt["optimizer"])
+        parallel.broadcast_state(self.state.model, self.state.optimizer)
         meta = ckpt["meta"]
         self._host_step = int(meta["step"])
         self.state.step.fill_(self._host_step)
@@ -162,7 +177,8 @@ class Trainer:
             eval_fn: Optional[Callable] = None):
         """workflow: [('train', k), ('val', 1), ...] — reference semantics."""
         self.logger.info(f"start training: {self.total_epochs} epochs x "
-                         f"{len(train_loader)} steps on {self.device}")
+                         f"{len(train_loader)} steps on {self.device}, "
+                         f"{parallel.process_count()} process(es)")
         prev_handler = self._install_preempt_handler()
         self.call_hook("before_run")
         stop_at = (self.total_epochs if self.stop_epoch is None
@@ -269,12 +285,12 @@ class Trainer:
         Preemption is honored at epoch ends."""
         self.loader = loader
         self.call_hook("before_train_epoch")
-        bs = loader.batch_size
         idx, shapes, orig_dtypes = loader.fused_epoch()
-        n = len(idx) // bs
         if self._epoch_step is None:
             self._warn_iteration_hooks()
-            self._epoch_step = make_epoch_step(self.train_step, bs, shapes, orig_dtypes)
+            self._epoch_step = make_epoch_step(self.train_step, loader.batch_size, shapes,
+                                               orig_dtypes, getattr(loader, "shard", None))
+        n = len(idx) // self._epoch_step.rows_per_step
         t0 = time.perf_counter()
         self._epoch_t0 = t0
         self.state, ms = self._epoch_step(self.state, loader.data, idx)
@@ -325,10 +341,13 @@ class Trainer:
         path = save_training_checkpoint(self.work_dir, self.state.model,
                                         self.state.optimizer, self.epoch,
                                         self._host_step, self.meta)
-        self.logger.info(f"saved checkpoint {path}")
+        if self.is_writer:
+            self.logger.info(f"saved checkpoint {path}")
         return path
 
     def emit_log(self, it: int, n: int):
+        if not self.is_writer:
+            return
         out = dict(self.log_buffer.output)
         step = self._host_step
         elapsed = time.perf_counter() - self._epoch_t0

@@ -147,10 +147,12 @@ class CenterHead(nn.Module):
             x = self.shared_conv(x)
         return [t(x, branch=branch, inner_mask=inner_mask) for t in self.tasks]
 
-    def loss(self, example: Dict[str, list], preds_dicts: List[Dict[str, torch.Tensor]]
-             ) -> Dict[str, list]:
+    def loss(self, example: Dict[str, list], preds_dicts: List[Dict[str, torch.Tensor]],
+             num_pos: Optional[torch.Tensor] = None) -> Dict[str, list]:
         """Per-task losses.  ``example`` carries per-task lists: hm
         (B, Z, Y, X, C), anno_pose (B, M, D), ind / mask / cat (B, M).
+        ``num_pos`` (T,): each task's positive count to normalize by in place
+        of the batch's own (``models.losses``).
         Returns per-task lists ``loss``, ``hm_loss``, ``loc_loss``,
         ``loc_loss_elem`` (D,) and ``num_positive``."""
         merged: Dict[str, list] = {k: [] for k in ("loss", "hm_loss", "loc_loss",
@@ -158,12 +160,13 @@ class CenterHead(nn.Module):
         for t, preds in enumerate(preds_dicts):
             hm, ind = example["hm"][t], example["ind"][t]
             mask, cat = example["mask"][t], example["cat"][t]
+            n = None if num_pos is None else num_pos[t]
             if self.focal_form == "clamped":
                 hm_loss = fast_focal_loss(clamped_sigmoid(preds["hm"].float()), hm,
-                                          ind, mask, cat)
+                                          ind, mask, cat, n)
             else:
-                hm_loss = fast_focal_loss_logits(preds["hm"], hm, ind, mask, cat)
-            rl = reg_loss(preds["reg"].float(), mask, ind, example["anno_pose"][t])
+                hm_loss = fast_focal_loss_logits(preds["hm"], hm, ind, mask, cat, n)
+            rl = reg_loss(preds["reg"].float(), mask, ind, example["anno_pose"][t], n)
             loc_loss = torch.sum(rl * self.code_w)
             merged["loss"].append(hm_loss + self.weight * loc_loss)
             merged["hm_loss"].append(hm_loss)

@@ -12,7 +12,10 @@ Counterpart of ``rtpose_tpu/models/losses.py:24-129`` (reference
 * ``reg_loss`` — masked L1 at the gathered indices, normalized by the
   positive count, per output dimension.
 All return float32; with no positive, the focal losses return the raw
-negative sum (the reference's rule).
+negative sum (the reference's rule).  ``num_pos``: the positive count to
+normalize by in place of the batch's own (data parallelism passes the
+global batch's count, so each rank's loss is its additive share of the
+global loss, and the no-positive rule follows the global count).
 """
 
 from __future__ import annotations
@@ -36,15 +39,16 @@ def _at_class(rows: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
     return torch.gather(rows, 2, cat.long()[:, :, None])[..., 0]
 
 
-def _normalize(pos_loss, neg_loss, maskf):
-    num_pos = maskf.sum()
+def _normalize(pos_loss, neg_loss, maskf, num_pos=None):
+    if num_pos is None:
+        num_pos = maskf.sum()
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
 
 
 def fast_focal_loss_logits(logits: torch.Tensor, target: torch.Tensor,
                            ind: torch.Tensor, mask: torch.Tensor,
-                           cat: torch.Tensor) -> torch.Tensor:
+                           cat: torch.Tensor, num_pos=None) -> torch.Tensor:
     """CornerNet focal loss from logits (B, Z, Y, X, C); ``target`` the
     gaussian heatmap of the same shape; ``ind``/``mask``/``cat`` (B, M)."""
     B, C = logits.shape[0], logits.shape[-1]
@@ -58,11 +62,11 @@ def fast_focal_loss_logits(logits: torch.Tensor, target: torch.Tensor,
     pos_log_p = _at_class(gather_feat(log_p, ind), cat)
     pos_p = _at_class(gather_feat(p, ind), cat)
     pos_loss = torch.sum(pos_log_p * torch.square(1.0 - pos_p) * maskf)
-    return _normalize(pos_loss, neg_loss, maskf)
+    return _normalize(pos_loss, neg_loss, maskf, num_pos)
 
 
 def fast_focal_loss(out: torch.Tensor, target: torch.Tensor, ind: torch.Tensor,
-                    mask: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, cat: torch.Tensor, num_pos=None) -> torch.Tensor:
     """CornerNet focal loss on heatmap probabilities ``out`` (already
     sigmoid-clamped, not logits), (B, Z, Y, X, C)."""
     B, C = out.shape[0], out.shape[-1]
@@ -73,22 +77,24 @@ def fast_focal_loss(out: torch.Tensor, target: torch.Tensor, ind: torch.Tensor,
                          * torch.pow(1.0 - target_flat, 4))
     pos_pred = _at_class(gather_feat(out_flat, ind), cat)
     pos_loss = torch.sum(torch.log(pos_pred) * torch.square(1.0 - pos_pred) * maskf)
-    return _normalize(pos_loss, neg_loss, maskf)
+    return _normalize(pos_loss, neg_loss, maskf, num_pos)
 
 
 def reg_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
-             target: torch.Tensor) -> torch.Tensor:
+             target: torch.Tensor, num_pos=None) -> torch.Tensor:
     """Masked L1 of a dense (B, Z, Y, X, D) regression at ``ind`` (B, M)
     against ``target`` (B, M, D); returns the (D,) per-dimension loss."""
     B, D = output.shape[0], output.shape[-1]
     pred = gather_feat(output.reshape(B, -1, D), ind)
-    return masked_l1(pred, mask, target)
+    return masked_l1(pred, mask, target, num_pos)
 
 
 def masked_l1(pred: torch.Tensor, mask: torch.Tensor,
-              target: torch.Tensor) -> torch.Tensor:
+              target: torch.Tensor, num_pos=None) -> torch.Tensor:
     """(B, M, D) predictions already at the objects -> the (D,) L1 loss,
     summed over batch and objects, normalized by the positive count."""
     maskf = mask.float()[:, :, None]
     l1 = torch.abs(pred * maskf - target * maskf)
-    return torch.sum(l1 / (maskf.sum() + 1e-4), dim=(0, 1))
+    if num_pos is None:
+        num_pos = maskf.sum()
+    return torch.sum(l1 / (num_pos + 1e-4), dim=(0, 1))

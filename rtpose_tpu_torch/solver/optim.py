@@ -72,7 +72,9 @@ class AdamOneCycle:
 
     ``step(finite=None)`` reads each parameter's ``.grad`` (None counts as
     zero), updates the parameters in place and returns the global gradient
-    norm before clipping.  ``state_dict`` / ``load_state_dict`` use the
+    norm before clipping.  ``step(grad=g)`` takes the flat gradient instead:
+    data parallelism sums ``flat_grad()`` over the ranks first, so the norm,
+    the clip and the update see the global gradient.  ``state_dict`` / ``load_state_dict`` use the
     layout of a torch optimizer's state dict (per-parameter ``step``,
     ``exp_avg``, ``exp_avg_sq``), so the reference's checkpoints carry it.
     """
@@ -103,11 +105,17 @@ class AdamOneCycle:
     def _flat(self, tensors) -> torch.Tensor:
         return torch.cat([t.reshape(-1) for t in tensors])
 
+    def flat_grad(self, *extra: torch.Tensor) -> torch.Tensor:
+        """The parameters' gradients as one flat float32 vector (None counts
+        as zero), with the 1-D ``extra`` tensors appended after them."""
+        return self._flat([p.grad if p.grad is not None else torch.zeros_like(p)
+                           for p in self.params] + list(extra)).float()
+
     @torch.no_grad()
-    def step(self, finite: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def step(self, finite: Optional[torch.Tensor] = None,
+             grad: Optional[torch.Tensor] = None) -> torch.Tensor:
         params = self.params
-        g = self._flat([p.grad if p.grad is not None else torch.zeros_like(p)
-                        for p in params]).float()
+        g = self.flat_grad() if grad is None else grad
         p = self._flat(params)
         gnorm = torch.linalg.vector_norm(g)
         step = self.step_count

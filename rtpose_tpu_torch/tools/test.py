@@ -4,7 +4,7 @@ Same CLI as ``tools/test.py`` plus ``--device``::
 
     python -m rtpose_tpu_torch.tools.test CONFIG --checkpoint CKPT.pth \
         [--work_dir DIR] [--testset] [--speed_test] [--device_preprocess] \
-        [--final_dtype {bfloat16,float32}] [--profile] [--device {cuda,cpu}]
+        [--final_dtype {bfloat16,float32}] [--profile] [--multihost] [--device {cuda,cpu}]
     python -m rtpose_tpu_torch.tools.test CONFIG --exported model.pt2 \
         [--testset] [--speed_test] [--device {cuda,cpu}]
 
@@ -19,6 +19,11 @@ Writes ``<work_dir>/<ckpt>/{split}_prediction.json`` and
 artifact (``rtpose_tpu_torch.tools.export``) instead of the live model: the
 weights, the int8 program and ``final_dtype`` come baked in, the batch size
 is the artifact's, and the outputs are named after the artifact file.
+
+``--multihost`` (under ``python -m torch.distributed.run --nproc_per_node N``):
+each rank evaluates its shard of the frames, the detections of every rank
+are gathered and merged by key, and only rank 0 writes the predictions and
+prints the evaluation; ``--speed_test`` times each rank's own frames.
 
 The LiDAR config evaluates voxel batches; with ``test_cfg.double_flip``
 (and the test pipeline's ``Voxelization.double_flip``) the live model runs
@@ -46,6 +51,9 @@ def parse_args(argv=None):
                         "'latest'; required unless --exported (artifacts bake their weights)")
     p.add_argument("--speed_test", action="store_true")
     p.add_argument("--testset", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun job (torch.distributed from torchrun's "
+                        "environment, one process per card)")
     p.add_argument("--device_preprocess", action="store_true",
                    help="ship ROI-cropped RAW cubes; cast/normalize/layout "
                         "run on the card (preprocess kernel)")
@@ -63,8 +71,11 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Run the evaluation; returns the results dict (also printed)."""
+    """Run the evaluation; returns the results dict (also printed).  On a
+    rank other than 0 its ``results`` are None: that rank writes and prints
+    nothing."""
     args = parse_args(argv)
+    from rtpose_tpu_torch import parallel
     from rtpose_tpu_torch.api import (assemble, build_dataset_from_cfg,
                                       resolve_device, serving_variant)
     from rtpose_tpu_torch.config import Config
@@ -84,7 +95,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--exported artifacts bake the normalized-input predict path; "
                          "--device_preprocess (raw cubes) would feed them un-normalized "
                          "data — drop one of the flags")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, multihost=args.multihost)
     cfg = Config.fromfile(args.config)
     ckpt_path = resolve_checkpoint(args.checkpoint) if args.checkpoint else None
     work_dir = args.work_dir or os.path.dirname(os.path.abspath(ckpt_path or args.exported))
@@ -121,7 +132,9 @@ def main(argv=None) -> dict:
     preprocess = ((dataset.norm_start, dataset.norm_scale)
                   if dataset.device_preprocess else None)
     loader = BatchLoader(dataset, batch_size=batch_size,
-                         num_workers=int(cfg.data.get("workers_per_gpu", 0)))
+                         num_workers=int(cfg.data.get("workers_per_gpu", 0)),
+                         num_shards=parallel.process_count(),
+                         shard_id=parallel.process_index())
     if args.exported:
         def eval_step(batch):
             return predict(model_input_of(batch, asm.input_key))
@@ -144,6 +157,9 @@ def main(argv=None) -> dict:
             logger.info(f"profiler trace written to {path}")
     if sec_per_frame is not None:
         print(f"\n Total time per frame: {sec_per_frame}")
+    if parallel.process_index() != 0:
+        sys.stdout.flush()
+        return dict(results=None, sec_per_frame=sec_per_frame, detections=detections)
 
     os.makedirs(work_dir, exist_ok=True)
     # an artifact's outputs are named after the artifact file
@@ -164,3 +180,5 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    from rtpose_tpu_torch import parallel
+    parallel.shutdown()

@@ -7,7 +7,8 @@ The CLI of ``tools/train.py`` plus ``--device``::
         [--stop_epoch N] [--lr_max X] [--pct_start X] [--div_factor X] \
         [--loc_weight X] [--loc_weight_early X --loc_weight_early_steps N] \
         [--device_preprocess] [--remat] [--device_cache] [--cache_dtype DTYPE] \
-        [--stream_cache_gb G] [--fuse_epochs] [--profile N] [--device {cuda,cpu}]
+        [--stream_cache_gb G] [--fuse_epochs] [--cache_shard] [--multihost] \
+        [--profile N] [--device {cuda,cpu}]
 
 Writes ``<work_dir>/exp_config.py``, the text and JSON logs, and
 ``<work_dir>/checkpoints/epoch_N.pth`` with a ``latest`` pointer, which
@@ -23,8 +24,20 @@ stores its large float arrays compressed; ``--stream_cache_gb`` does the
 same chunk by chunk for a set larger than the device's memory;
 ``--fuse_epochs`` (with ``--device_cache``) runs each epoch as replays of
 one captured CUDA graph of the train step, with no Python between a step's
-operations (on the CPU: a plain loop).  The JAX CLI's ``--cache_shard`` and
-``--multihost`` belong to data parallelism and are not ported.  The LiDAR
+operations (on the CPU: a plain loop).
+
+``--multihost``: data parallelism over the processes of a ``torchrun`` job,
+one per card (NCCL; gloo with ``--device cpu``)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m rtpose_tpu_torch.tools.train CONFIG --multihost ...
+
+Each rank trains on its shard of every global batch of
+``samples_per_gpu x N`` samples, and the step is the gradient of the global
+batch's loss (``parallel``); only rank 0 writes logs and checkpoints.
+``--cache_shard`` (with ``--device_cache``) splits the device cache by rows
+over the ranks, so the cacheable set grows with them; each batch is then
+exchanged by a collective.  The LiDAR
 config (``configs/lidar/voxelnet_pose.py``, VoxelNet on voxel batches)
 trains with the same flags except ``--device_preprocess`` (radar cubes
 only; refused, as the JAX CLI fails on it).
@@ -88,6 +101,13 @@ def parse_args(argv=None):
                    help="with --device_cache: run each epoch as replays of one "
                         "captured CUDA graph of the train step (no per-step host "
                         "dispatch; per-iteration hooks do not fire)")
+    p.add_argument("--cache_shard", action="store_true",
+                   help="shard the device cache by rows across the ranks (cacheable "
+                        "set scales with the cards instead of one card's memory; "
+                        "batch gathers ride collectives)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun job (torch.distributed from torchrun's "
+                        "environment, one process per card)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="run on the card (default) or the CPU")
     return p.parse_args(argv)
@@ -116,6 +136,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from rtpose_tpu_torch import parallel
     from rtpose_tpu_torch.api import assemble, build_dataset_from_cfg, resolve_device
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import BatchLoader, DeviceCachedLoader, StreamingDeviceLoader
@@ -126,15 +147,22 @@ def main(argv=None):
     from rtpose_tpu_torch.solver import (build_optimizer_from_cfg, make_one_cycle_fns,
                                          piecewise_weight)
 
-    device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
+    device_cache = args.device_cache or cfg.data.get("device_cache", False)
+    if args.cache_shard and not device_cache:
+        raise SystemExit("--cache_shard shards the device cache: it requires "
+                         "--device_cache")
+    device = resolve_device(args.device, multihost=args.multihost)
+    writer = parallel.process_index() == 0
     work_dir = args.work_dir or os.path.join(
         "./work_dirs", os.path.basename(args.config)[:-3],
         datetime.now().strftime("%Y%m%d_%H%M%S"))
     os.makedirs(work_dir, exist_ok=True)
-    logger = get_root_logger(cfg.get("log_level", "INFO"), work_dir=work_dir)
-    with open(os.path.join(work_dir, "exp_config.py"), "w") as f:
-        f.write(cfg.text)
+    # the text log file and the config backup are rank 0's
+    logger = get_root_logger(cfg.get("log_level", "INFO"), work_dir=work_dir if writer else None)
+    if writer:
+        with open(os.path.join(work_dir, "exp_config.py"), "w") as f:
+            f.write(cfg.text)
     seed = args.seed or 0
     if args.seed is not None:
         logger.info(f"Set random seed to {args.seed}")
@@ -150,24 +178,28 @@ def main(argv=None):
                                      device_preprocess=args.device_preprocess)
     preprocess = ((dataset.norm_start, dataset.norm_scale)
                   if dataset.device_preprocess else None)
+    # samples_per_gpu per rank: the global batch is that times the ranks
     batch_size = int(cfg.data["samples_per_gpu"])
     num_workers = int(cfg.data.get("workers_per_gpu", 0))
-    if args.device_cache or cfg.data.get("device_cache", False):
+    shards = dict(num_shards=parallel.process_count(), shard_id=parallel.process_index())
+    if device_cache:
         loader = DeviceCachedLoader(dataset, batch_size=batch_size, device=device,
                                     shuffle=True, seed=seed, cache_dtype=args.cache_dtype,
-                                    max_bytes=device_cache_cap(device))
-        logger.info(f"device-cached {len(dataset)} samples "
-                    f"({loader.nbytes / 1e9:.2f} GB on {device})")
+                                    max_bytes=device_cache_cap(device),
+                                    shard_cache=args.cache_shard, **shards)
+        held = (f"rows {loader.shard.lo}-{loader.shard.hi - 1} of {len(dataset)} samples"
+                if loader.shard is not None else f"{len(dataset)} samples")
+        logger.info(f"device-cached {held} ({loader.nbytes / 1e9:.2f} GB on {device})")
     elif args.stream_cache_gb:
         loader = StreamingDeviceLoader(dataset, batch_size=batch_size,
                                        chunk_bytes=int(args.stream_cache_gb * 1e9),
                                        device=device, shuffle=True, seed=seed,
-                                       cache_dtype=args.cache_dtype)
+                                       cache_dtype=args.cache_dtype, **shards)
         logger.info(f"streaming device cache: {len(loader.chunks)} chunks x "
                     f"{loader.samples_per_chunk} samples (double-buffered)")
     else:
         loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
-                             num_workers=num_workers)
+                             num_workers=num_workers, **shards)
     total_steps = len(loader) * total_epochs
 
     lr_cfg = dict(cfg.lr_config)
@@ -183,6 +215,7 @@ def main(argv=None):
     model = init_weights(asm.model, torch.Generator().manual_seed(seed)).to(device)
     optimizer = build_optimizer_from_cfg(cfg, list(model.parameters()), total_steps)
     state = create_train_state(model, optimizer)
+    parallel.broadcast_state(model, optimizer)     # the JAX package's replicate
     logger.info(f"Model parameter count: {sum(p.numel() for p in model.parameters())}")
 
     loc_weight_fn = None
@@ -216,7 +249,8 @@ def main(argv=None):
         val_dataset = build_dataset_from_cfg(cfg.data, "val",
                                              max_poses=asm.target_spec.max_poses,
                                              device_preprocess=args.device_preprocess)
-        val_loader = BatchLoader(val_dataset, batch_size=batch_size, num_workers=num_workers)
+        val_loader = BatchLoader(val_dataset, batch_size=batch_size, num_workers=num_workers,
+                                 **shards)
         eval_step = make_eval_step(model, asm.decode_spec, input_key=asm.input_key,
                                    sparse=asm.sparse_head, preprocess=preprocess,
                                    multi_poses=asm.multi_poses)
@@ -224,6 +258,8 @@ def main(argv=None):
         def eval_fn(state, loader, epoch):
             dets, _ = run_eval(eval_step, loader, asm.decode_spec, device=device,
                                one_hm=asm.one_hm, logger=logger)
+            if not writer:
+                return
             res, _ = val_dataset.evaluation(dets)
             for k, v in res["results"].items():
                 logger.info(f"[val epoch {epoch}] {k}: {v:.2f}")
@@ -238,3 +274,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from rtpose_tpu_torch import parallel
+    parallel.shutdown()

@@ -34,6 +34,7 @@ def test_fresh_interpreter_loads_no_jax():
         "import rtpose_tpu_torch.models.readers, rtpose_tpu_torch.data.pipelines\n"
         "import rtpose_tpu_torch.data.point_cloud, rtpose_tpu_torch.data.augment\n"
         "import rtpose_tpu_torch.data.gt_sampler\n"
+        "import rtpose_tpu_torch.parallel, rtpose_tpu_torch.parallel.mesh\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
