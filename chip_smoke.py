@@ -107,14 +107,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
      ``tools.test``; only rank 0 wrote logs and checkpoints; the ranks'
      parameters equal.  NCCL launches no kernel for a one-rank in-place
      sum, so at one card the traces hold no NCCL kernel, and none is
-     expected.
+     expected;
+ 26. the rest of the JAX package's surface: ``tools.test`` on the flagship
+     with ``DATASET.EVAL_BOX_AP`` and the host loader, once through the
+     native C++ cube loader and once through the numpy path (box AP beside
+     MPJPE, the same detections evaluated again by the port's evaluation
+     and equal, eval ms/frame of both, no preprocess launch and 14 conv
+     launches a frame; one cube of both host paths at most one ulp apart);
+     ``boxes_iou3d`` / ``rotate_nms`` on 512 seeded boxes and ``circle_nms``,
+     card against CPU (IoUs within 1e-5, equal keep lists); the RPN neck at
+     the reference's default widths on a seeded (8, 16, 64, 160, 128)
+     feature, train-mode forward and backward, card against CPU (outputs,
+     running statistics, the input gradient's norm) and its device time;
+     ``PolarToCart`` (2-D and 3-D), ``BEVFeatureExtractor``, ``RoIHead``
+     and ``assign_roi_targets``, card against CPU; the LiDAR VoxelNet
+     distilled into the flagship RadarPoseNet (final width 64) at B=2, the
+     teacher frozen through ``utils.freeze``: three AdamW steps of
+     ``distill_loss`` (per step 1 preprocess, 14 + 6 conv and 14 grad-input
+     launches), the teacher bit-equal after them and the student moved, ms a
+     step, the first loss against the CPU in float32 within phase 14's 2 %.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
 wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
 ``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-24), a
-``{"dp": ...}`` line (phase 25, rank 0's numbers), a ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
+``{"dp": ...}`` line (phase 25, rank 0's numbers), a ``{"rest": ...}`` line
+(phase 26), a ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
 ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
 ``launches`` is its wrapper's count on its own path (eval for the
 preprocess and forward conv kernels, training for the conv backward; the
@@ -126,7 +145,8 @@ launches are kernels counted by name in the traced fused epoch
 (``fused_trace_launches``; the conv's forward and grad-input are one kernel
 symbol and are counted together).  ``path_launches`` gives each kernel's
 count on each slice path's own runs (phases 20-24; the LiDAR path's TTA
-eval and its two artifacts too) and on phase 25's rank 0.
+eval and its two artifacts too), on phase 25's rank 0 and on phase 26's
+box-AP evals and distillation steps.
 """
 
 from __future__ import annotations
@@ -2498,6 +2518,389 @@ def phase_dp(tmp, cfg_path, refs=None):
     return info
 
 
+# ---- phase 26: the rest of the JAX package (box AP, geometry, neck, second
+# stage, RoI head, distillation)
+
+GEOM_BOXES = 512        # seeded boxes of the geometry check
+GEOM_ATOL = 1e-5        # IoUs card vs CPU (float32, the CPU tests' tolerance vs JAX)
+NMS_THRESH, NMS_POST = 0.1, 128
+# RPN at the reference's default widths, float32 on both sides (TF32 off):
+# cuDNN and the CPU sum each conv in other orders, through 17 conv + BatchNorm
+# layers; outputs and running statistics within 1e-3 of their largest
+# magnitude (layout or flip faults are O(1))
+RPN_FRAC = 1e-3
+RPN_SHAPE = (8, 16, 64, 160, 128)    # a flagship backbone feature, B=8
+# PolarToCart / BEV gather four (eight) taps and sum them as on the CPU; the
+# card divides a tensor by a Python scalar through the scalar's reciprocal,
+# one ulp off a pixel coordinate of ~160, so ~1e-5 off a bilinear weight
+# (measured: 1.8e-5 of the largest BEV value): 1e-4 of the largest
+# magnitude.  The RoI head's float32 dense layers (TF32 off) and flax
+# LayerNorm: 1e-4
+TAPS_FRAC, ROI_FRAC = 1e-4, 1e-4
+DISTILL_FRAMES, DISTILL_B, DISTILL_STEPS = 6, 2, 3
+K3_STUDENT = K3_PER_STEP     # the flagship's 14, width 64 at its final conv
+DISTILL_LR = 1e-4
+
+
+def rest_config(tmp, tag, cfg_path, extra):
+    """A config that runs ``cfg_path`` and then ``extra``."""
+    path = os.path.join(tmp, f"rest_{tag}.py")
+    with open(path, "w") as f:
+        f.write(f"exec(compile(open({cfg_path!r}).read(), {cfg_path!r}, 'exec'))\n" + extra)
+    return path
+
+
+def rest_box_ap(tmp, cfg_path, ckpt):
+    """tools.test on the flagship with the host loader (native C++ cube
+    loader, then the numpy path) and ``EVAL_BOX_AP``: box AP beside MPJPE,
+    the same detections evaluated again by the port's evaluation, eval
+    ms/frame with ``use_native`` on and off, launch counts (no preprocess on
+    the card: the host normalizes)."""
+    import numpy as np
+    from rtpose_tpu_torch import native, ops
+    from rtpose_tpu_torch.api import build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.tools import test as port_test
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    res = {"native_build_s": time.perf_counter() - t0}
+    print(f"[rest box AP] native cube loader built (or found) in {res['native_build_s']:.1f} s")
+    for tag, extra in (("native", ""), ("numpy", "data['test']['use_native'] = False\n")):
+        path = rest_config(tmp, f"box_ap_{tag}", cfg_path,
+                           "DATASET['EVAL_BOX_AP'] = True\n" + extra)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = port_test.main([path, "--checkpoint", ckpt, "--work_dir",
+                              os.path.join(tmp, f"rest_{tag}"), "--testset", "--speed_test"])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if len(out["detections"]) != FRAMES:
+            fail(f"box AP ({tag}): {len(out['detections'])} frames decoded, expected {FRAMES}")
+        if counts["preprocess"] != 0 or counts["conv3d_k3"] != K3_PER_STEP * FRAMES:
+            fail(f"box AP ({tag}): launch counts {counts}, expected no preprocess and "
+                 f"{K3_PER_STEP * FRAMES} conv launches")
+        box_ap = out["results"]["box_ap"]
+        aps = [box_ap[m]["Pedestrian"] for m in ("bev", "3d")]
+        if not all(0.0 <= a <= 1.0 for a in aps):
+            fail(f"box AP ({tag}) out of [0, 1]: {aps}")
+        cfg = Config.fromfile(path)
+        ds = build_dataset_from_cfg(cfg.data, "test")
+        again = ds.evaluation(out["detections"])[0]["results"]
+        if again["box_ap"] != box_ap or again["MPJPE"] != out["results"]["MPJPE"]:
+            fail(f"box AP ({tag}): the port's evaluation of the same detections differs: "
+                 f"{again['box_ap']} vs {box_ap}")
+        res[tag] = dict(use_native=ds.use_native, ms_per_frame=out["sec_per_frame"] * 1e3,
+                        wall_s=wall, mpjpe_mm=out["results"]["MPJPE"], box_ap_bev=aps[0],
+                        box_ap_3d=aps[1], launches=counts)
+        print(f"[rest box AP] {tag}: tools.test {wall:.1f} s wall, "
+              f"{out['sec_per_frame'] * 1e3:.3f} ms/frame at B=1 (host loader); MPJPE "
+              f"{out['results']['MPJPE']} mm; box AP bev {aps[0]}, 3d {aps[1]}; "
+              f"launch counts {counts}")
+    if native._lib is None or not res["native"]["use_native"] or res["numpy"]["use_native"]:
+        fail("box AP: the native cube loader was not the host path of the native run")
+    if res["native"]["mpjpe_mm"] != res["native"]["mpjpe_mm"]:
+        fail("box AP: MPJPE is not a number")
+    # the two host paths of one frame: at most one float32 ulp apart
+    ds = build_dataset_from_cfg(Config.fromfile(cfg_path).data, "test")
+    s = ds.samples[0]
+    a = ds.get_cube(s["seq"], s["rdr_frame"])
+    ds.use_native = False
+    b = ds.get_cube(s["seq"], s["rdr_frame"])
+    ulps = int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64)).max())
+    if ulps > 1:
+        fail(f"native and numpy cubes {ulps} ulps apart")
+    res["native_vs_numpy_max_ulps"] = ulps
+    return res
+
+
+def rest_geometry(dev):
+    """``boxes_iou3d`` / ``rotate_nms`` on GEOM_BOXES seeded boxes and
+    ``circle_nms`` on their centers: the card against the CPU."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(26)
+    n = GEOM_BOXES
+    boxes = np.concatenate([rng.uniform(-8, 8, (n, 3)), rng.uniform(0.4, 2.0, (n, 3)),
+                            rng.uniform(-np.pi, np.pi, (n, 1))], 1).astype(np.float32)
+    scores = rng.random(n).astype(np.float32)
+    b_c, s_c = torch.from_numpy(boxes), torch.from_numpy(scores)
+    b_g, s_g = b_c.to(dev), s_c.to(dev)
+    iou_c = nms.boxes_iou3d(b_c, b_c)
+    iou_g = nms.boxes_iou3d(b_g, b_g)
+    err = check_close("boxes_iou3d card vs cpu", iou_g.cpu(), iou_c, 0.0, GEOM_ATOL)
+    keep_c, num_c = nms.rotate_nms(b_c, s_c, NMS_THRESH, post_max_size=NMS_POST)
+    keep_g, num_g = nms.rotate_nms(b_g, s_g, NMS_THRESH, post_max_size=NMS_POST)
+    if keep_g.cpu().tolist() != keep_c.tolist() or int(num_g) != int(num_c):
+        fail(f"rotate_nms keep lists differ: card {int(num_g)} kept, cpu {int(num_c)}")
+    dets = torch.cat([b_c[:, :2], s_c[:, None]], 1)
+    ck_c, cn_c = nms.circle_nms(dets, 1.0, post_max_size=NMS_POST)
+    ck_g, cn_g = nms.circle_nms(dets.to(dev), 1.0, post_max_size=NMS_POST)
+    if ck_g.cpu().tolist() != ck_c.tolist() or int(cn_g) != int(cn_c):
+        fail("circle_nms keep lists differ")
+    iou_ms = wrapper_ms(lambda: nms.boxes_iou3d(b_g, b_g), iters=10, warmup=2)
+    nms_ms = wrapper_ms(lambda: nms.rotate_nms(b_g, s_g, NMS_THRESH, post_max_size=NMS_POST),
+                        iters=3, warmup=1)
+    print(f"[rest geometry] {n} boxes: iou3d max err card vs cpu {err:.2e}; rotate_nms kept "
+          f"{int(num_g)} (equal lists), circle_nms kept {int(cn_g)} (equal); card "
+          f"boxes_iou3d {iou_ms:.3f} ms, rotate_nms {nms_ms:.3f} ms (eager)")
+    return dict(boxes=n, iou3d_max_abs_err=err, rotate_nms_kept=int(num_g),
+                circle_nms_kept=int(cn_g), iou3d_ms=iou_ms, rotate_nms_ms=nms_ms)
+
+
+def rest_rpn(dev):
+    """The RPN neck at the reference's default widths on a seeded flagship
+    backbone feature (B=8 x 16 Z planes of 64 x 160 x 128), train mode,
+    forward and backward: the card against the CPU (outputs and running
+    statistics to RPN_FRAC; the input and parameter gradients to phase 14's
+    norm and cosine tolerances), and the card's time."""
+    import torch
+    from rtpose_tpu_torch.models import RPN, init_weights
+
+    cpu = init_weights(RPN(), torch.Generator().manual_seed(26))
+    gpu = RPN().to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(27)
+    x = torch.randn(RPN_SHAPE, generator=g)
+    # the loss mean(out * w) with seeded weights w
+    w = torch.randn(*RPN_SHAPE[:-3], RPN_SHAPE[-3] // 2, RPN_SHAPE[-2] // 2, 768, generator=g)
+
+    def step(model, inp, weights):
+        inp = inp.clone().requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        out = model(inp, train=True)
+        (out * weights).mean().backward()
+        return out.detach(), inp.grad
+
+    def flat_grads(model):
+        return torch.cat([p.grad.reshape(-1).double().cpu() for p in model.parameters()])
+
+    x_g, w_g = x.to(dev), w.to(dev)
+    out_g, gx_g = step(gpu, x_g, w_g)
+    gp_g = flat_grads(gpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_c, gx_c = step(cpu, x, w)
+    t_cpu = time.perf_counter() - t0
+    gp_c = flat_grads(cpu)
+    res = {"out_err_frac": check_close("RPN output card vs cpu", out_g.cpu(), out_c, 0.0,
+                                       RPN_FRAC * out_c.abs().max().item())
+           / out_c.abs().max().item()}
+    bufs = dict(gpu.named_buffers())
+    for name, want in cpu.named_buffers():
+        check_close(f"RPN {name} card vs cpu", bufs[name].cpu(), want, 0.0,
+                    RPN_FRAC * want.abs().max().item())
+    # the gradients: BatchNorm's backward projects out two directions per
+    # channel at each of 17 layers, so elementwise they carry float32 noise
+    # of a few per cent of their largest value even on one device (the CPU
+    # in float32 against float64 at (1, 4, 64, 160, 128)); held as phase 14
+    # holds a train step's
+    for tag, a, b in (("input", gx_g.double().cpu().reshape(-1), gx_c.double().reshape(-1)),
+                      ("params", gp_g, gp_c)):
+        rel = abs(a.norm().item() - b.norm().item()) / b.norm().item()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        res[f"grad_{tag}_norm_rel_err"], res[f"grad_{tag}_cosine"] = rel, cos
+        if rel > TRAIN_GNORM_RTOL or cos < TRAIN_MIN_COS:
+            fail(f"RPN {tag} gradient card vs cpu: norm {rel:.2e} relative, cosine {cos}")
+    del out_g, gx_g
+    ms = wrapper_ms(lambda: step(gpu, x_g, w_g), iters=5, warmup=2)
+    fwd_ms = wrapper_ms(lambda: gpu(x_g, train=True), iters=5, warmup=1)
+    prec = getattr(getattr(torch.backends.cudnn, "conv", None), "fp32_precision", None)
+    print(f"[rest rpn] output {tuple(out_c.shape)}; card vs cpu: {res}; running stats within "
+          f"{RPN_FRAC}; card forward+backward {ms:.2f} ms, forward {fwd_ms:.2f} ms (train mode, "
+          f"float32, input {RPN_SHAPE}; cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"conv fp32_precision {prec}); CPU step {t_cpu:.1f} s")
+    return dict(res, input_shape=list(RPN_SHAPE), output_shape=list(out_c.shape),
+                fwd_bwd_ms=ms, fwd_ms=fwd_ms, cpu_step_s=t_cpu)
+
+
+def rest_modules(dev):
+    """PolarToCart (both dimensions), BEVFeatureExtractor and RoIHead (with
+    ``assign_roi_targets``) at their default widths: the card against the
+    CPU."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch.data.synthetic import ROI1
+    from rtpose_tpu_torch.models import (BEVFeatureExtractor, PolarToCart, RoIHead,
+                                         assign_roi_targets, init_weights)
+
+    g = torch.Generator().manual_seed(28)
+    res = {}
+    for dim, shape in (("2", (8, 64, 160, 128)), ("3", (2, 16, 64, 160, 32))):
+        m = PolarToCart(cart_roi=ROI1, dimension=dim, polar_range=(0, 12, -60, 60, -30, 30))
+        x = torch.randn(shape, generator=g)
+        want = m(x)
+        got = m.to(dev)(x.to(dev)).cpu()
+        res[f"polar_to_cart_{dim}d"] = check_close(
+            f"PolarToCart {dim}-D card vs cpu", got, want, 0.0,
+            TAPS_FRAC * want.abs().max().item()) / want.abs().max().item()
+        res[f"polar_to_cart_{dim}d_shape"] = list(want.shape)
+    bev = BEVFeatureExtractor()
+    feat = torch.randn(8, 160, 160, 256, generator=g)
+    centers = torch.rand(8, 128, 2, generator=g) * 16.0       # world xy on the 0.1 m map
+    want = bev(feat, centers)
+    got = bev(feat.to(dev), centers.to(dev)).cpu()
+    res["bev"] = check_close("BEV card vs cpu", got, want, 0.0,
+                             TAPS_FRAC * want.abs().max().item()) / want.abs().max().item()
+    head = init_weights(RoIHead(), torch.Generator().manual_seed(29))
+    want = head(want)
+    head_g = RoIHead().to(dev)
+    head_g.load_state_dict(head.state_dict())
+    got = head_g(got.to(dev))
+    for k in ("rcnn_cls", "rcnn_reg"):
+        res[f"roi_{k}"] = check_close(f"RoIHead {k} card vs cpu", got[k].cpu(), want[k], 0.0,
+                                      ROI_FRAC * want[k].abs().max().item()) \
+            / want[k].abs().max().item()
+    rng = np.random.default_rng(30)
+    gt = np.concatenate([rng.uniform(-4, 4, (16, 3)), rng.uniform(0.5, 2.0, (16, 3)),
+                         rng.uniform(-np.pi, np.pi, (16, 1))], 1).astype(np.float32)
+    rois = (gt[rng.integers(0, 16, 128)] + rng.normal(scale=0.3, size=(128, 7))).astype(
+        np.float32)
+    t_c = assign_roi_targets(torch.from_numpy(rois), torch.ones(128), torch.from_numpy(gt), 12)
+    t_g = assign_roi_targets(torch.from_numpy(rois).to(dev), torch.ones(128, device=dev),
+                             torch.from_numpy(gt).to(dev), 12)
+    if not torch.equal(t_g["labels"].cpu(), t_c["labels"]):
+        fail("assign_roi_targets labels differ card vs cpu")
+    res["roi_max_iou"] = check_close("assign_roi_targets max_iou card vs cpu",
+                                     t_g["max_iou"].cpu(), t_c["max_iou"], 0.0, GEOM_ATOL)
+    print(f"[rest modules] card vs cpu, error / max magnitude: {res}")
+    return res
+
+
+def distill_cfg(dtype=None):
+    """Distillation of the shipped LiDAR VoxelNet (teacher) into the flagship
+    RadarPoseNet (student) whose final conv and head take 64 channels (the
+    teacher's feature width; the flagship's is 128).  ``dtype`` overrides
+    every backbone's and head's compute dtype (the CPU copy: float32)."""
+    import copy
+
+    from rtpose_tpu_torch.config import Config
+
+    student = copy.deepcopy(dict(Config.fromfile(FLAGSHIP).model))
+    student["backbone"]["final_conv_out"] = 64
+    student["pose_head"]["in_channels"] = 64
+    teacher = copy.deepcopy(dict(Config.fromfile(LIDAR_CFG).model))
+    for m in (student, teacher):
+        if dtype is not None:
+            m["backbone"]["dtype"] = dtype
+            m["pose_head"]["dtype"] = dtype
+    return dict(type="Distillation", student=student, teacher=teacher)
+
+
+def rest_distill(tmp, dev):
+    """Distillation at full width, B=2: the student's raw cubes through the
+    preprocess kernel, the teacher frozen through ``utils.freeze``, three
+    AdamW steps of ``distill_loss`` on the card; launch counts, the
+    teacher's parameters bit-equal after the steps and the student's moved,
+    device ms a step, and the first step's loss against the CPU port in
+    float32 (phase 14's tolerance)."""
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.api import build_dataset_from_cfg
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.data import generate_synthetic_dataset
+    from rtpose_tpu_torch.engine import VOXEL_KEYS, preprocess_raw
+    from rtpose_tpu_torch.models import build_detector, init_weights
+    from rtpose_tpu_torch.utils import split_frozen
+
+    root = os.path.join(tmp, "distill_data")
+    generate_synthetic_dataset(root, num_seqs=1, frames_per_seq=DISTILL_FRAMES,
+                               test_frames_per_seq=0, seed=9, roi_only=True, with_lidar=True)
+    rcfg = Config.fromfile(rest_config(tmp, "distill_radar", FLAGSHIP,
+                                       f"DATASET['DIR']['ROOT_DIR'] = {root!r}\n"
+                                       "DATASET['DIR']['CUBES_ARE_ROI'] = True\n"))
+    lcfg = Config.fromfile(lidar_config(tmp, "distill", root))
+    rds = build_dataset_from_cfg(rcfg.data, "train", device_preprocess=True)
+    lds = build_dataset_from_cfg(lcfg.data, "train")
+    if [s["rdr_frame"] for s in rds.samples] != [s["rdr_frame"] for s in lds.samples]:
+        fail("distillation: the radar and LiDAR datasets list different frames")
+    norm = (rds.norm_start, rds.norm_scale)
+
+    def batch(i, device):
+        """Raw cubes (B, D, Z, Y, X) and the voxel batch of step i."""
+        idx = range(i * DISTILL_B, (i + 1) * DISTILL_B)
+        raw = torch.from_numpy(np.stack([rds[j]["rdr_raw"] for j in idx])).to(device)
+        items = [lds[j] for j in idx]
+        lidar = {k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items])).to(device)
+                 for k in VOXEL_KEYS}
+        return raw, lidar
+
+    model = init_weights(build_detector(distill_cfg()), torch.Generator().manual_seed(0))
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    cpu = build_detector(distill_cfg("float32"))
+    cpu.load_state_dict(sd0)
+    model = model.to(dev).train()
+    opt = split_frozen(lambda ps: torch.optim.AdamW(ps, lr=DISTILL_LR, weight_decay=0.01),
+                       model, ["teacher"])
+    n_frozen = sum(p.numel() for p in model.teacher.parameters())
+    if any(p.requires_grad for p in model.teacher.parameters()):
+        fail("distillation: a teacher parameter still needs a gradient")
+    batches = [batch(i, dev) for i in range(DISTILL_STEPS)]
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    for raw, lidar in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        radar = {"rdr_tensor": preprocess_raw(raw, norm)}
+        loss = model.distill_loss(*model(radar, lidar))
+        loss.backward()
+        opt.step()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    counts = ops.launch_counts()
+    want = dict(preprocess=DISTILL_STEPS, conv3d_k3=DISTILL_STEPS * (K3_STUDENT + K3_LIDAR),
+                conv3d_k3_bwd=DISTILL_STEPS * K3_STUDENT)
+    if any(counts[k] != v for k, v in want.items()) or counts["conv3d_k3_int8"]:
+        fail(f"distillation: launch counts {counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"distillation: non-finite losses {losses}")
+    # the student's regression tower is not in the loss: its tensors get no
+    # gradient, and AdamW leaves them; every tensor with a gradient moved
+    graded = [(n, p) for n, p in model.student.named_parameters() if p.grad is not None]
+    moved = [not torch.equal(p.detach().cpu(), sd0[f"student.{n}"]) for n, p in graded]
+    if not all(torch.equal(p.detach().cpu(), sd0[f"teacher.{n}"])
+               for n, p in model.teacher.named_parameters()):
+        fail("distillation: a frozen teacher parameter changed")
+    n_student = sum(1 for _ in model.student.parameters())
+    if not all(moved) or len(graded) < n_student // 2:
+        fail(f"distillation: {sum(moved)} of {len(graded)} student tensors with a gradient "
+             f"moved ({n_student} in all)")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        raw_c, l_c = batch(0, torch.device("cpu"))
+        loss_c = cpu.distill_loss(*cpu({"rdr_tensor": preprocess_raw(raw_c, norm)}, l_c)).item()
+    t_cpu = time.perf_counter() - t0
+    rel = abs(losses[0] - loss_c) / abs(loss_c)
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"distillation: first loss card {losses[0]} vs cpu {loss_c} ({rel:.2e} relative)")
+    print(f"[rest distill] {DISTILL_STEPS} steps at B={DISTILL_B}: losses {losses}; card "
+          f"ms/step {ms}; launch counts {counts}; teacher ({n_frozen} parameters) bit-equal, "
+          f"{sum(moved)}/{n_student} student tensors moved (all with a gradient); first loss "
+          f"card {losses[0]} cpu "
+          f"{loss_c} (rel {rel:.2e}, CPU forward {t_cpu:.1f} s)")
+    return dict(batch=DISTILL_B, steps=DISTILL_STEPS, losses=losses, ms_per_step=ms,
+                launches=counts, teacher_params=n_frozen, student_tensors_moved=sum(moved),
+                student_tensors=n_student, first_loss_cpu=loss_c, first_loss_rel_err=rel)
+
+
+def phase_rest(tmp, cfg_path, ckpt, dev):
+    """Phase 26: box AP through tools.test, geometry, the RPN neck, the
+    second stage and RoI head, and distillation; the phase's wall time."""
+    t0 = time.perf_counter()
+    rest = dict(box_ap=rest_box_ap(tmp, cfg_path, ckpt), geometry=rest_geometry(dev),
+                rpn=rest_rpn(dev), modules=rest_modules(dev), distill=rest_distill(tmp, dev))
+    rest["wall_s"] = time.perf_counter() - t0
+    print(f"[rest] phase wall {rest['wall_s']:.1f} s")
+    return rest
+
+
 def main() -> int:
     try:
         import torch
@@ -2548,6 +2951,7 @@ def main() -> int:
         slices = dict(skel_mp2=phase_skel_mp2(tmp, dev), dcn=phase_dcn(tmp, train_root, dev),
                       phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root),
                       lidar=phase_lidar(tmp, dev))
+        rest = phase_rest(tmp, cfg_path, ckpt, dev)
         dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
                                        train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
@@ -2588,6 +2992,12 @@ def main() -> int:
         for path, counts_ in (("dp_train", dp["launches"]), ("dp_fused", dp["fused_launches"]),
                               ("dp_test", dp["test_launches"])):
             k["path_launches"][path] = counts_[name]
+        # phase 26: the box-AP evals (host loader, native and numpy) and the
+        # three distillation steps
+        for path, counts_ in (("rest_box_ap_native_test", rest["box_ap"]["native"]["launches"]),
+                              ("rest_box_ap_numpy_test", rest["box_ap"]["numpy"]["launches"]),
+                              ("rest_distill_train", rest["distill"]["launches"])):
+            k["path_launches"][path] = counts_[name]
     e2e["mpjpe_mm"] = out["results"]["MPJPE"]
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"e2e": e2e}))
@@ -2595,6 +3005,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"slices": slices}))
     print(json.dumps({"dp": dp}))
+    print(json.dumps({"rest": rest}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

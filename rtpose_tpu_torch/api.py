@@ -21,7 +21,7 @@ from .core.decode import DecodeSpec
 from .core.targets import PoseTargetSpec
 from .data.cruw_pose import CubeGeometry
 from .models import build_detector
-from .registry import DATASETS, build_from_cfg
+from .data.builder import build_dataset
 
 
 def resolve_device(device: str | None = None, multihost: bool = False) -> torch.device:
@@ -191,8 +191,9 @@ def serving_variant(asm: Assembly, final_dtype) -> Assembly:
 
 def build_dataset_from_cfg(data_cfg: Dict[str, Any], split: str,
                            device_preprocess: bool = False, max_poses: int = 1):
-    """Build a dataset from cfg.data.{train,val,test} (reference schema).
-    ``split``, ``max_poses`` and the flags reach every child of a wrapper
+    """Build a dataset from cfg.data.{train,val,test} (reference schema),
+    through ``data.builder.build_dataset`` (registry keys or the factory's
+    short names).  ``split``, ``max_poses`` and the flags reach every child of a wrapper
     (``data/wrappers.py``)."""
     dcfg = dict(data_cfg[split])
     dcfg.pop("class_names", None)
@@ -203,4 +204,4 @@ def build_dataset_from_cfg(data_cfg: Dict[str, Any], split: str,
         dcfg["group_by_frame"] = True
     if device_preprocess:
         dcfg["device_preprocess"] = True
-    return build_from_cfg(dcfg, DATASETS)
+    return build_dataset(dcfg)

@@ -24,9 +24,18 @@ Counterpart of ``rtpose_tpu/data/cruw_pose.py`` (reference
 * ``CRUWPoseLidarDataset`` (``CRUW_POSE_Lidar_Dataset``): the LiDAR
   branch's per-frame point clouds through the ``Preprocess`` /
   ``Voxelization`` pipeline into fixed-shape voxel items;
-* a config's ``pipeline`` runs on every item (``data/pipelines.py``).
-
-Not ported yet: the native C++ cube loader and the KITTI box-AP report.
+* a config's ``pipeline`` runs on every item (``data/pipelines.py``);
+* ``use_native`` (default True): a Doppler cube on a local path whose
+  header reads f2/f4 loads through the native C++ loader (``native/``:
+  decode, crop, normalize, clamp and transpose in one pass), as in the JAX
+  package; complex cubes, cubes without Doppler, object-store paths and
+  files the loader cannot read take the numpy path;
+* labels, the meta file, cubes and point files are read through
+  ``utils.oss`` (``open_path`` / ``load_npy``), so an ``s3://`` /
+  ``oss://`` ``ROOT_DIR`` works once a client is installed;
+* ``DATASET.EVAL_BOX_AP`` (``True`` or ``{min_overlap, metrics}``) adds the
+  KITTI box AP of person boxes made from the joints to ``evaluation()``
+  (``results["box_ap"]``, ``core/kitti_eval.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import numpy as np
 
 from ..core.metrics import abs_pjpe, pjpe
 from ..registry import DATASETS
+from ..utils.oss import is_oss_path, load_npy, open_path
 from .pipelines import Compose
 from .point_cloud import PointCloudDataset
 
@@ -107,8 +117,10 @@ class CRUWPoseDataset(PointCloudDataset):
 
     def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
                  pipeline=None, split: str = "train", max_poses: int = 1,
-                 device_preprocess: bool = False, group_by_frame: bool = False):
+                 use_native: bool = True, device_preprocess: bool = False,
+                 group_by_frame: bool = False):
         ds = cfg["DATASET"]
+        self.use_native = bool(use_native)
         self.rdr_type = ds.get("RDR_TYPE", "zyx_real")
         self.with_doppler = "d" in self.rdr_type
         self.is_complex = "complex" in self.rdr_type
@@ -156,7 +168,7 @@ class CRUWPoseDataset(PointCloudDataset):
     @staticmethod
     def _read_meta(path: str) -> Dict[str, str]:
         out = {}
-        with open(path) as f:
+        with open_path(path) as f:
             for line in f:
                 line = line.strip()
                 if line:
@@ -165,7 +177,7 @@ class CRUWPoseDataset(PointCloudDataset):
         return out
 
     def _load_samples(self, label_file: str) -> List[dict]:
-        with open(label_file) as f:
+        with open_path(label_file) as f:
             by_seq = json.load(f)
         samples = []
         for seq, frames in by_seq.items():
@@ -193,11 +205,23 @@ class CRUWPoseDataset(PointCloudDataset):
                             self.rdr_dirname, f"{rdr_frame}.npy")
 
     def get_cube(self, seq: str, rdr_frame: str) -> np.ndarray:
-        """Load, ROI-crop, normalize: channels-last (Z, Y, X, D) float32
-        (the reference's three-pass numpy math, cruw_pose.py:167-185).
-        Complex cubes: crop only, (Z, Y, X, 2D) (``get_cube_phase``,
-        cruw_pose.py:188-194)."""
-        arr = np.load(self._cube_path(seq, rdr_frame)).astype(np.float32)
+        """Load, ROI-crop, normalize: channels-last (Z, Y, X, D) float32.
+        The native loader takes Doppler cubes on local paths (``use_native``,
+        the JAX package's dispatch, ``rtpose_tpu/data/cruw_pose.py:
+        209-243``); otherwise the reference's three-pass numpy math
+        (cruw_pose.py:167-185).  Complex cubes: crop only, (Z, Y, X, 2D)
+        (``get_cube_phase``, cruw_pose.py:188-194)."""
+        path = self._cube_path(seq, rdr_frame)
+        if (self.use_native and self.with_doppler and not self.is_complex
+                and not is_oss_path(path)):
+            from .. import native
+            probe = native.probe(path)
+            if probe is not None and probe[0][0] > 0:
+                out = native.load_cube(path, self.cube_roi_idx, self.norm_start,
+                                       self.norm_scale, probe[0][0], self.geom.grid_zyx)
+                if out is not None:
+                    return out
+        arr = load_npy(path).astype(np.float32)
         z0, z1, y0, y1, x0, x1 = self.cube_roi_idx
         if self.is_complex:
             arr = arr[:, :, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
@@ -215,7 +239,7 @@ class CRUWPoseDataset(PointCloudDataset):
     def get_cube_raw(self, seq: str, rdr_frame: str) -> np.ndarray:
         """ROI-cropped cube in the on-disk dtype, (D, Z', Y', X'): no cast,
         no normalize, no transpose — those run on the card."""
-        arr = np.load(self._cube_path(seq, rdr_frame))
+        arr = load_npy(self._cube_path(seq, rdr_frame))
         z0, z1, y0, y1, x0, x1 = self.cube_roi_idx
         if self.with_doppler:
             arr = arr[:, z0 : z1 + 1, y0 : y1 + 1, x0 : x1 + 1]
@@ -250,7 +274,7 @@ class CRUWPoseDataset(PointCloudDataset):
         ``detections``: {'seq/frame/rdr_frame': {'keypoints':
         [(id, x, y, z, score), ...]}} — joint order 0..14.
         """
-        with open(self.label_file) as f:
+        with open_path(self.label_file) as f:
             gt = json.load(f)
         seq_mpjpe = defaultdict(list)
         seq_abs = defaultdict(list)
@@ -295,7 +319,72 @@ class CRUWPoseDataset(PointCloudDataset):
         for j in range(self.NUM_JOINTS):
             total[f"PJPE_{j}"] = float(np.mean([v[f"PJPE_{j}"] for v in seq_res.values()]))
             total[f"ABS_PJPE_{j}"] = float(np.mean([v[f"ABS_PJPE_{j}"] for v in seq_res.values()]))
-        return {"results": total, "seq_results": {**seq_res, "ALL": total}}, None
+        res = {"results": total, "seq_results": {**seq_res, "ALL": total}}
+        # DATASET.EVAL_BOX_AP: true, or {min_overlap, metrics}
+        box_ap_cfg = self.cfg["DATASET"].get("EVAL_BOX_AP", False)
+        if box_ap_cfg:
+            opts = box_ap_cfg if isinstance(box_ap_cfg, dict) else {}
+            res["results"]["box_ap"] = self._box_ap_report(
+                detections, gt, min_overlap=float(opts.get("min_overlap", 0.25)),
+                metrics=tuple(opts.get("metrics", ("bev", "3d"))))
+        return res, None
+
+    def get_sensor_data(self, query: int) -> Dict[str, Any]:
+        """Raw sensor tensors, metadata and annotations of one sample, no
+        pipeline (the ``PointCloudDataset`` contract, custom.py:44-142)."""
+        s = self.samples[query]
+        return {
+            "radar": {"cube": self.get_cube(s["seq"], s["rdr_frame"])},
+            "metadata": dict(seq=s["seq"], frame=s["frame"], rdr_frame=s["rdr_frame"]),
+            "annotations": {"poses": np.asarray(s["poses"], np.float32)},
+        }
+
+    @staticmethod
+    def _poses_to_kitti_anno(poses, scores=None) -> Dict[str, Any]:
+        """15x3 keypoint sets -> a KITTI annotation dict: a person's box is
+        the axis-aligned extent of their joints (PCDet (x, y, z, dx, dy, dz,
+        heading), heading 0), floored at a 0.3 m footprint so degenerate
+        poses still form a matchable box; the class is ``"Pedestrian"``."""
+        poses = np.asarray(poses, np.float32).reshape(-1, 15, 3)
+        lo, hi = poses.min(axis=1), poses.max(axis=1)
+        n = poses.shape[0]
+        anno = {
+            "name": np.asarray(["Pedestrian"] * n),
+            "location": (lo + hi) / 2.0,
+            "dimensions": np.maximum(hi - lo, np.float32(0.3)),
+            "rotation_y": np.zeros(n, np.float32),
+        }
+        if scores is not None:
+            anno["score"] = np.asarray(scores, np.float32).reshape(-1)
+        return anno
+
+    @property
+    def ground_truth_annotations(self) -> List[Dict[str, Any]]:
+        """Per-sample KITTI-format GT annotations (``PointCloudDataset``
+        contract, custom.py:122-142)."""
+        return [self._poses_to_kitti_anno(s["poses"]) for s in self.samples]
+
+    def _box_ap_report(self, detections: Dict[str, dict], gt: Dict,
+                       min_overlap: float = 0.25, metrics=("bev", "3d")) -> Dict:
+        """KITTI AP over person boxes made from the keypoints, frame by
+        frame: a detection's score is the mean of its joints' scores."""
+        from ..core.kitti_eval import get_official_eval_result
+        gt_annos, dt_annos = [], []
+        for key, val in detections.items():
+            seq, frame, _ = key.split("/")
+            gt_annos.append(self._poses_to_kitti_anno([o["pose"] for o in gt[seq][frame]]))
+            kp = np.asarray([p[1:4] for p in val["keypoints"]], np.float32)
+            sc = np.asarray([p[4] for p in val["keypoints"]], np.float32)
+            n_full = (kp.shape[0] // self.NUM_JOINTS) * self.NUM_JOINTS
+            if n_full == 0:
+                dt_annos.append(self._poses_to_kitti_anno(
+                    np.zeros((0, 15, 3), np.float32), np.zeros(0, np.float32)))
+                continue
+            poses = kp[:n_full].reshape(-1, self.NUM_JOINTS, 3)
+            scores = sc[:n_full].reshape(-1, self.NUM_JOINTS).mean(axis=1)
+            dt_annos.append(self._poses_to_kitti_anno(poses, scores))
+        return get_official_eval_result(gt_annos, dt_annos, list(self.CLASSES),
+                                        min_overlaps=min_overlap, metrics=metrics)
 
 
 @DATASETS.register_module(name="CRUW_POSE_Lidar_Dataset")
@@ -310,9 +399,10 @@ class CRUWPoseLidarDataset(CRUWPoseDataset):
     pipeline's ``*coordinates`` renamed) and no ragged point arrays."""
 
     def __init__(self, cfg: Dict[str, Any], label_file: str, class_names=None,
-                 pipeline=None, split: str = "train", max_poses: int = 1):
+                 pipeline=None, split: str = "train", max_poses: int = 1,
+                 use_native: bool = True):
         super().__init__(cfg, label_file, class_names=class_names, pipeline=pipeline,
-                         split=split, max_poses=max_poses)
+                         split=split, max_poses=max_poses, use_native=use_native)
         ds = cfg["DATASET"]
         self.lidar_dirname = ds["DIR"].get("LIDAR_DIR", "os2-64")
         self.p_l2r = np.asarray(ds.get("P_L2R", np.eye(4)), np.float32)
@@ -320,7 +410,7 @@ class CRUWPoseLidarDataset(CRUWPoseDataset):
     def get_points(self, seq: str, lidar_frame: str) -> np.ndarray:
         path = os.path.join(self.root_dir, self.seq_id_to_name[seq], self.lidar_dirname,
                             f"{lidar_frame}.npy")
-        return np.load(path).astype(np.float32)
+        return load_npy(path).astype(np.float32)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         s = self.samples[idx]

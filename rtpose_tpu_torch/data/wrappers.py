@@ -17,11 +17,12 @@ import bisect
 
 import numpy as np
 
-from ..registry import DATASETS, build_from_cfg
+from ..registry import DATASETS
 
 
 def _build(cfg, common: dict):
-    return build_from_cfg({**cfg, **common}, DATASETS) if isinstance(cfg, dict) else cfg
+    from .builder import build_dataset
+    return build_dataset({**cfg, **common}) if isinstance(cfg, dict) else cfg
 
 
 class _Delegating:

@@ -1,14 +1,21 @@
 """Carry JAX parameters into the port's ``state_dict``.
 
-``state_dict_from_jax(params)`` takes the ``rtpose_tpu`` RadarPoseNet or
-VoxelNet params tree (nested dicts of numpy arrays, with or without the
-top-level 'params' key) and returns the port's state dict.  Keys follow the reference
+``state_dict_from_jax(params)`` takes the ``rtpose_tpu`` RadarPoseNet,
+VoxelNet or Distillation variables (nested dicts of numpy arrays: a params
+tree, or ``{"params": ..., "batch_stats": ...}``) and returns the port's
+state dict.  The ``batch_stats`` collection (the RPN neck's BatchNorm)
+gives ``running_mean`` / ``running_var`` from ``mean`` / ``var``.  Keys follow the reference
 torch model — the names ``rtpose_tpu/engine/torch_import.py::
 build_name_map`` maps the other way, so a port checkpoint also loads back
 into flax.  Layouts: conv kernels (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky,
 kx), the deformable head's 2-D kernels (ky, kx, Ci, Co) -> (Co, Ci, ky,
-kx), dense kernels (Ci, Co) -> (Co, Ci); GroupNorm and LayerNorm ``scale``
--> ``weight``.  A VoxelNet's ``reader_m`` holds parameters only for
+kx), dense kernels (Ci, Co) -> (Co, Ci); the neck's transposed-conv
+kernels (``*_deconv``, (s, s, Ci, Co), no kernel flip in flax) ->
+``ConvTranspose2d``'s (Ci, Co, s, s), spatially flipped; GroupNorm,
+LayerNorm and BatchNorm ``scale`` -> ``weight``.  The flax submodules
+``neck_m``, ``student_m`` and ``teacher_m`` are the port's ``neck``,
+``student`` and ``teacher``; the RPN neck, the RoI head and the deformable
+head keep the flax module names below them.  A VoxelNet's ``reader_m`` holds parameters only for
 ``PillarFeatureNet``, whose ``Dense_i`` / ``LayerNorm_i`` become
 ``reader.linears.i`` / ``reader.norms.i``.  The deformable head
 (``models/dcn_head.py``) keeps the flax module names, which
@@ -52,6 +59,8 @@ def _segment(name: str, parent: str, siblings: List[str]) -> str:
         return "pose_head"
     if name == "reader_m":
         return "reader"
+    if name in ("neck_m", "student_m", "teacher_m"):
+        return name[:-2]
     m = re.match(r"^(Dense|LayerNorm)_(\d+)$", name)
     if m and parent == "reader_m":
         return f"{'linears' if m.group(1) == 'Dense' else 'norms'}.{m.group(2)}"
@@ -80,9 +89,13 @@ def _segment(name: str, parent: str, siblings: List[str]) -> str:
     return name
 
 
-def _to_torch(value) -> torch.Tensor:
+def _to_torch(value, module: str = "") -> torch.Tensor:
     a = np.array(value, dtype=np.float32)
-    if a.ndim == 2:  # dense kernel (Ci, Co) -> (Co, Ci)
+    if a.ndim == 4 and module.endswith("_deconv"):
+        # flax ConvTranspose (s, s, Ci, Co): output pixel i * s + r reads tap
+        # s - 1 - r -> ConvTranspose2d (Ci, Co, s, s), which reads tap r
+        a = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+    elif a.ndim == 2:  # dense kernel (Ci, Co) -> (Co, Ci)
         a = a.T
     elif a.ndim == 5:  # conv kernel (kz, ky, kx, Ci, Co) -> (Co, Ci, kz, ky, kx)
         a = np.transpose(a, (4, 3, 0, 1, 2))
@@ -91,24 +104,30 @@ def _to_torch(value) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """flax RadarPoseNet / VoxelNet params -> the port's state dict."""
-    tree = params.get("params", params)
+    """flax RadarPoseNet / VoxelNet / Distillation variables -> the port's
+    state dict (parameters, and the BatchNorm running statistics of a
+    ``batch_stats`` collection)."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
-    def walk(node: Mapping, prefix: List[str], parent: str):
+    def walk(node: Mapping, prefix: List[str], parent: str, leaves: Dict[str, str]):
         names = list(node)
         for name, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, prefix + [_segment(name, parent, names)], name)
+                walk(value, prefix + [_segment(name, parent, names)], name, leaves)
                 continue
             if name in ("final_conv_kernel", "final_conv_bias"):
                 key = prefix + ["final_conv", "weight" if name.endswith("kernel") else "bias"]
             else:
-                key = prefix + [_LEAF[name]]
-            out[".".join(key)] = _to_torch(value)
+                key = prefix + [leaves[name]]
+            out[".".join(key)] = _to_torch(value, parent)
 
-    walk(tree, [], "")
+    walk(params.get("params", params), [], "", _LEAF)
+    if "params" in params and "batch_stats" in params:
+        walk(params["batch_stats"], [], "", _STATS)
     return out
 
 

@@ -14,10 +14,12 @@ import torch
 import torch.nn as nn
 
 from ..core.decode import flat_argmax
-from ..registry import BACKBONES, DETECTORS, HEADS, READERS, build_from_cfg
+from ..registry import BACKBONES, DETECTORS, HEADS, NECKS, READERS, build_from_cfg
 from .center_head import SepHead
 from .dcn_head import Conv2dNHWC, DCNSepHead, DeformConv2d, FeatureAdaption, LayerNormNHWC
 from .layers import GroupNorm8, TorchConv3d
+from .necks import BatchNormNHWC
+from .roi_head import RoIHead
 
 
 def build_submodule(cfg, registry, extra: dict | None = None):
@@ -44,14 +46,16 @@ class RadarPoseNet(nn.Module):
                  pose_head: dict = None, neck: Optional[dict] = None,
                  pretrained: Optional[str] = None):
         super().__init__()
-        if neck is not None:
-            raise NotImplementedError("necks are not ported")
         self.reader = build_submodule(reader, READERS)
         self.backbone = build_submodule(backbone, BACKBONES)
+        self.neck = build_submodule(neck, NECKS)
         self.pose_head = build_submodule(pose_head, HEADS)
 
     def extract_feat(self, rdr_tensor: torch.Tensor) -> torch.Tensor:
-        return self.backbone(self.reader(rdr_tensor))
+        """Reader, backbone and the neck if any; the neck normalizes with its
+        running statistics (the JAX detector calls it without ``train``)."""
+        x = self.backbone(self.reader(rdr_tensor))
+        return x if self.neck is None else self.neck(x)
 
     def forward(self, rdr_tensor: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         return self.pose_head(self.extract_feat(rdr_tensor))
@@ -120,14 +124,17 @@ def build_detector(cfg: dict):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random initialization: He-normal conv and dense kernels (fan-in), zero
-    biases except the heatmap output's ``init_bias``, unit GroupNorm and
-    LayerNorm scales; the deformable head's offset convs start at zero, so
-    it starts as a plain conv (reference center_head.py:56-57).  Draws
-    happen on the CPU from ``generator`` in module order."""
+    biases except the heatmap output's ``init_bias``, unit GroupNorm,
+    LayerNorm and BatchNorm scales (BatchNorm's running statistics at 0 and
+    1); the deformable head's offset convs start at zero, so it starts as a
+    plain conv (reference center_head.py:56-57); the RoI head's output
+    layers are normal with its ``FINAL_STD``.  Draws happen on the CPU from
+    ``generator`` in module order."""
     offset_convs = {m.conv_offset for m in model.modules() if isinstance(m, FeatureAdaption)}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (TorchConv3d, Conv2dNHWC, DeformConv2d, nn.Linear)):
+            if isinstance(m, (TorchConv3d, Conv2dNHWC, DeformConv2d, nn.Linear, nn.Conv2d,
+                              nn.ConvTranspose2d)):
                 if m in offset_convs:
                     m.weight.zero_()
                 else:
@@ -136,12 +143,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.weight.copy_(w)
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
-            elif isinstance(m, (GroupNorm8, LayerNormNHWC)):
+            elif isinstance(m, (GroupNorm8, LayerNormNHWC, BatchNormNHWC)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+                if isinstance(m, BatchNormNHWC):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
         for m in model.modules():
             if isinstance(m, SepHead) and "hm" in m.heads:
                 m.hm[-1].bias.fill_(m.init_bias)
             elif isinstance(m, DCNSepHead):
                 m.cls_out.bias.fill_(m.init_bias)
+            elif isinstance(m, RoIHead):
+                for name, std in m.FINAL_STD.items():
+                    out = getattr(m, f"{name}_out")
+                    out.weight.copy_(torch.randn(out.weight.shape, generator=generator) * std)
     return model

@@ -10,7 +10,9 @@ Counterpart of ``rtpose_tpu/models/losses.py:24-129`` (reference
   reference's clamp would cut it).
 * ``fast_focal_loss`` — the reference's form on clamped probabilities.
 * ``reg_loss`` — masked L1 at the gathered indices, normalized by the
-  positive count, per output dimension.
+  positive count, per output dimension;
+* ``jde_embedding_loss`` — the batch-hard triplet loss of appearance
+  embeddings (JDE).
 All return float32; with no positive, the focal losses return the raw
 negative sum (the reference's rule).  ``num_pos``: the positive count to
 normalize by in place of the batch's own (data parallelism passes the
@@ -98,3 +100,30 @@ def masked_l1(pred: torch.Tensor, mask: torch.Tensor,
     if num_pos is None:
         num_pos = maskf.sum()
     return torch.sum(l1 / (num_pos + 1e-4), dim=(0, 1))
+
+
+def jde_embedding_loss(embeddings: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                       margin: float = 0.3) -> torch.Tensor:
+    """Appearance-embedding metric loss (the reference's JDELoss,
+    det3d/models/losses/jde_loss.py:7-54, which delegates to
+    pytorch-metric-learning's TripletMarginLoss;
+    ``rtpose_tpu/models/losses.py::jde_embedding_loss``).
+
+    Batch-hard triplet margin loss over L2-normalized embeddings: each
+    anchor's hardest positive (same id) and hardest negative (other id) form
+    its triplet; anchors without both are left out.  Fixed shapes: padded
+    entries carry mask 0.  embeddings: (N, D); ids: (N,); mask: (N,).
+    """
+    e = embeddings / torch.clamp(torch.linalg.norm(embeddings, dim=-1, keepdim=True), min=1e-6)
+    d = torch.sum(torch.square(e[:, None, :] - e[None, :, :]), dim=-1)   # (N, N)
+    same = ids[:, None] == ids[None, :]
+    valid = (mask[:, None] > 0) & (mask[None, :] > 0)
+    eye = torch.eye(ids.shape[0], dtype=torch.bool, device=ids.device)
+    inf = torch.full_like(d, float("inf"))
+    hardest_pos = torch.where(same & valid & ~eye, d, -inf).amax(dim=1)
+    hardest_neg = torch.where(~same & valid, d, inf).amin(dim=1)
+    has_triplet = torch.isfinite(hardest_pos) & torch.isfinite(hardest_neg)
+    loss = torch.clamp(hardest_pos - hardest_neg + margin, min=0.0)
+    loss = torch.where(has_triplet, loss, torch.zeros_like(loss))
+    denom = torch.clamp(has_triplet.float().sum(), min=1.0)
+    return loss.sum() / denom

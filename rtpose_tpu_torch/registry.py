@@ -65,9 +65,17 @@ def build_from_cfg(cfg: dict, registry: Registry, default_args: dict | None = No
     return obj_cls(**args)
 
 
+# Model-side registries (det3d/models/registry.py parity)
 READERS = Registry("reader")
 BACKBONES = Registry("backbone")
+NECKS = Registry("neck")
 HEADS = Registry("head")
+LOSSES = Registry("loss")
 DETECTORS = Registry("detector")
+SECOND_STAGE = Registry("second_stage")
+ROI_HEAD = Registry("roi_head")
+FEAT_TRANSFORMS = Registry("feat_transform")
+
+# Data-side registries (det3d/datasets/registry.py parity)
 DATASETS = Registry("dataset")
 PIPELINES = Registry("pipeline")

@@ -15,6 +15,7 @@ compared here is copied or indexed, not computed: equality is exact.
 import dataclasses
 import glob
 import os
+import time
 
 import numpy as np
 import pytest
@@ -124,20 +125,29 @@ def test_assembly_faults_fixed():
     assert input_channels(dict(ds, RDR_TYPE="zyx_real")) == 1
 
 
-def _numpy_path(jd):
-    """The JAX datasets' numpy cube path (the reference's three-pass math,
-    which the port keeps): their native C++ loader, not ported, rounds the
-    normalization one float32 ulp differently."""
-    for d in getattr(jd, "datasets", None) or [getattr(jd, "dataset", jd)]:
-        d.use_native = False
-    return jd
+def _cube_path(use_native, *datasets):
+    """Both packages' datasets (or every child of a wrapper) on the same host
+    cube path: the native C++ loader (``use_native=True``, the default of
+    both) or the numpy one; the two round the normalization up to one
+    float32 ulp apart.  ``rtpose_tpu.native`` keeps None for the process
+    when its first load fails (another test worker still linking the
+    library): it is asked again until the file is complete."""
+    from rtpose_tpu import native as jax_native
+    deadline = time.monotonic() + 120
+    while use_native and jax_native.get_lib() is None and time.monotonic() < deadline:
+        jax_native._tried = False
+        time.sleep(1)
+    for ds in datasets:
+        for d in getattr(ds, "datasets", None) or [getattr(ds, "dataset", ds)]:
+            d.use_native = use_native
+    return datasets
 
 
 def _wrapped(name, roots, monkeypatch):
     path = os.path.join(REPO, "configs", "cruw_pose", f"{name}.py")
     jcfg, cfg = _load(path, roots, monkeypatch)
-    return (_numpy_path(jax_dataset(jcfg.data, "train", max_poses=1)),
-            build_dataset_from_cfg(cfg.data, "train", max_poses=1))
+    return _cube_path(True, jax_dataset(jcfg.data, "train", max_poses=1),
+                      build_dataset_from_cfg(cfg.data, "train", max_poses=1))
 
 
 @pytest.mark.parametrize("name,kind,n", [
@@ -219,8 +229,9 @@ def test_complex_cube_items_match_jax(device_preprocess, roots, monkeypatch):
     refused (complex cubes carry ``rdr_tensor`` even when it is asked)."""
     path = os.path.join(REPO, "configs", "cruw_pose", "hr3d_one_hm_doppler_phase.py")
     jcfg, cfg = _load(path, roots, monkeypatch)
-    jd = _numpy_path(jax_dataset(jcfg.data, "test", device_preprocess=device_preprocess))
-    pd = build_dataset_from_cfg(cfg.data, "test", device_preprocess=device_preprocess)
+    jd, pd = _cube_path(True, jax_dataset(jcfg.data, "test", device_preprocess=device_preprocess),
+                        build_dataset_from_cfg(cfg.data, "test",
+                                               device_preprocess=device_preprocess))
     assert not pd.device_preprocess and not jd.device_preprocess
     assert pd.rdr_dirname == jd.rdr_dirname == "DZYX_npy_f16_complex"
     for i in range(len(jd)):

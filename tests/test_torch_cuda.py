@@ -10,7 +10,9 @@ preprocess, 1e-6 relative (the same float32 ops in the same
 order); conv and its grad-input, one bf16 ulp (2^-7 relative) plus 2e-3 of
 the output range (float32 sums in two orders, each rounded once to bf16);
 grad-weight, the library's bf16 weight-gradient against the float32 one on
-the same bf16 operands, one bf16 ulp plus 2e-3 of the largest value.
+the same bf16 operands, one bf16 ulp plus 2e-3 of the largest value; box
+IoUs card against CPU, 1e-5 absolute (float32), NMS keep lists and RoI
+labels equal.
 """
 
 import os
@@ -591,3 +593,33 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
     reg_max = want["reg"].abs().max().item()
     torch.testing.assert_close(got["reg"].float().cpu(), want["reg"], rtol=0,
                                atol=0.05 * reg_max)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_box_geometry_card_matches_cpu(dev, seed):
+    """``boxes_iou3d`` / ``boxes_iou_bev`` within 1e-5 of the CPU's, and
+    ``rotate_nms`` / ``circle_nms`` keep lists equal, on seeded boxes with
+    ties in the scores; ``assign_roi_targets`` labels equal."""
+    import numpy as np
+    from rtpose_tpu_torch.models import assign_roi_targets
+    from rtpose_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(seed)
+    boxes = np.concatenate([rng.uniform(-4, 4, (200, 3)), rng.uniform(0.4, 2.0, (200, 3)),
+                            rng.uniform(-np.pi, np.pi, (200, 1))], 1).astype(np.float32)
+    scores = rng.random(200).astype(np.float32)
+    scores[10:20] = scores[0]
+    b_c, s_c = torch.from_numpy(boxes), torch.from_numpy(scores)
+    b_g, s_g = b_c.to(dev), s_c.to(dev)
+    for fn in (nms.boxes_iou3d, nms.boxes_iou_bev):
+        torch.testing.assert_close(fn(b_g, b_g[:50]).cpu(), fn(b_c, b_c[:50]), rtol=0, atol=1e-5)
+    for kw in (dict(thresh=0.1), dict(thresh=0.3, pre_max_size=120)):
+        got = nms.rotate_nms(b_g, s_g, post_max_size=64, **kw)
+        want = nms.rotate_nms(b_c, s_c, post_max_size=64, **kw)
+        assert got[0].cpu().tolist() == want[0].tolist() and int(got[1]) == int(want[1])
+    dets = torch.cat([b_c[:, :2], s_c[:, None]], 1)
+    got, want = nms.circle_nms(dets.to(dev), 0.8), nms.circle_nms(dets, 0.8)
+    assert got[0].cpu().tolist() == want[0].tolist()
+    t_g = assign_roi_targets(b_g[:64], s_g[:64], b_g[100:110], 8)
+    t_c = assign_roi_targets(b_c[:64], s_c[:64], b_c[100:110], 8)
+    assert torch.equal(t_g["labels"].cpu(), t_c["labels"])

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``rtpose_tpu_torch`` (and its CLIs and
 ``chip_smoke.py``) loads no JAX, flax, optax, orbax or ``rtpose_tpu``
-module, and no source file of the package imports them."""
+module, and no source file of the package imports them; its native cube
+loader is its own copy of the C++ source."""
 
 import os
 import re
@@ -35,6 +36,16 @@ def test_fresh_interpreter_loads_no_jax():
         "import rtpose_tpu_torch.data.point_cloud, rtpose_tpu_torch.data.augment\n"
         "import rtpose_tpu_torch.data.gt_sampler\n"
         "import rtpose_tpu_torch.parallel, rtpose_tpu_torch.parallel.mesh\n"
+        "import rtpose_tpu_torch.utils, rtpose_tpu_torch.utils.oss, rtpose_tpu_torch.native\n"
+        "import rtpose_tpu_torch.utils.fileio, rtpose_tpu_torch.utils.timer\n"
+        "import rtpose_tpu_torch.utils.progressbar, rtpose_tpu_torch.utils.config_tool\n"
+        "import rtpose_tpu_torch.utils.flops, rtpose_tpu_torch.utils.freeze\n"
+        "import rtpose_tpu_torch.data.builder, rtpose_tpu_torch.data.factory\n"
+        "import rtpose_tpu_torch.core.boxes, rtpose_tpu_torch.core.kitti_eval\n"
+        "import rtpose_tpu_torch.ops.nms, rtpose_tpu_torch.ops.grid_sample\n"
+        "import rtpose_tpu_torch.models.necks, rtpose_tpu_torch.models.feat_transforms\n"
+        "import rtpose_tpu_torch.models.second_stage, rtpose_tpu_torch.models.roi_head\n"
+        "import rtpose_tpu_torch.models.distillation\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -58,3 +69,10 @@ def test_no_source_file_imports_jax():
             if name.startswith("."):
                 continue          # relative: inside the package
             assert _top_level(name) not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_native_loader_is_the_ports_own_source():
+    from rtpose_tpu_torch import native
+    assert os.path.dirname(native.SRC) == os.path.join(REPO, "rtpose_tpu_torch", "native")
+    assert os.path.isfile(native.SRC)
+    assert native.BUILD_DIR == os.path.join(REPO, "rtpose_tpu_torch", "build")

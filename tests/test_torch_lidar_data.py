@@ -149,8 +149,8 @@ def test_lidar_items_match_jax(env, kind):
     vox = dict(vox, cfg=dict(vox["cfg"], **vox_extra))
     pipeline = [dict(type="Preprocess", cfg=pre), vox]
     label = "Train.json" if split == "train" else "Test.json"
-    jd = JaxLidarDataset(ds_cfg, label, pipeline=pipeline, split=split, use_native=False)
-    pd = CRUWPoseLidarDataset(ds_cfg, label, pipeline=pipeline, split=split)
+    jd = JaxLidarDataset(ds_cfg, label, pipeline=pipeline, split=split, use_native=True)
+    pd = CRUWPoseLidarDataset(ds_cfg, label, pipeline=pipeline, split=split, use_native=True)
     assert len(pd) == len(jd) == (8 if split == "train" else 6)
     np.testing.assert_array_equal(pd.flag, jd.flag)
     for i in range(len(jd)):
@@ -188,7 +188,8 @@ def test_loaders_carry_voxel_batches(env, cache_dtype):
 
     ds_cfg, vox = _dataset_cfg(env["root"])
     pipeline = [dict(type="Preprocess", cfg={}), vox]
-    pds = CRUWPoseLidarDataset(ds_cfg, "Train.json", pipeline=pipeline, split="train")
+    pds = CRUWPoseLidarDataset(ds_cfg, "Train.json", pipeline=pipeline, split="train",
+                               use_native=True)
     cpu = torch.device("cpu")
     kw = dict(batch_size=4, shuffle=True, seed=3)
     host = BatchLoader(pds, **kw)
@@ -196,7 +197,7 @@ def test_loaders_carry_voxel_batches(env, cache_dtype):
     stream = StreamingDeviceLoader(pds, chunk_bytes=10 ** 9, device=cpu,
                                    cache_dtype=cache_dtype, **kw)
     jds = JaxLidarDataset(ds_cfg, "Train.json", pipeline=pipeline, split="train",
-                          use_native=False)
+                          use_native=True)
     assert cached.nbytes == JaxCached(jds, cache_dtype=cache_dtype, **kw).nbytes
     assert cached._orig_dtype == ({} if cache_dtype is None else {"voxels": torch.float32})
     items = {(it["meta"]["seq"], it["meta"]["frame"]): it for it in (pds[i] for i in

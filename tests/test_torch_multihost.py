@@ -287,6 +287,32 @@ def test_sharded_cache_run_equals_replicated_cache_run(env):
         assert sum(f.endswith(".log.json") for f in files) == 1 and len(files) == 4, files
 
 
+def test_sync_bn_over_two_ranks_equals_one_process(env):
+    """The RPN neck with ``sync_bn_axis`` on two gloo ranks, each on half of
+    the batch, equals the neck on the whole batch in one process: outputs,
+    running statistics and input gradients to 1e-5 of their largest value,
+    the parameter gradients summed over the ranks likewise."""
+    x, w = worker.sync_bn_input()
+    whole = worker.sync_bn_case(x, w, None)
+    ranks = [r["sync_bn"] for r in env["ranks"]]
+
+    def close(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    close(np.concatenate([r["out"] for r in ranks]), whole["out"])
+    close(np.concatenate([r["grad_x"] for r in ranks]), whole["grad_x"])
+    for name, want in whole["buffers"].items():
+        for r in ranks:
+            close(np.asarray(r["buffers"][name]), want)
+    for name, want in whole["grad_params"].items():
+        close(sum(np.asarray(r["grad_params"][name]) for r in ranks), want)
+    # unsynchronized halves would not: their statistics differ
+    half = worker.sync_bn_case(x[:2], w[:2], None)
+    assert not np.allclose(half["buffers"]["block0_bn0.running_mean"],
+                           whole["buffers"]["block0_bn0.running_mean"], atol=1e-4)
+
+
 def test_cache_shard_needs_device_cache(env):
     with pytest.raises(SystemExit, match="--cache_shard shards the device cache: it requires "
                                          "--device_cache"):

@@ -10,6 +10,9 @@ gloo) and, on the tiny config and root the test made:
    for 4 steps at ``lr_max`` LR_MAX;
 2. a third step whose batch is NaN on rank 1 only;
 3. ``all_gather_objects`` of the rank's id and last loss;
+   then an RPN neck with ``sync_bn_axis`` in train mode, twice, on this
+   rank's half of a deterministic (4, 6, 6, 3) batch (``sync_bn_case``):
+   its output, running statistics, input gradient and parameter gradients;
 4. ``tools.train.main`` with ``--multihost --device_cache --fuse_epochs``,
    with and without ``--cache_shard``;
 5. ``tools.test.main --multihost`` on the checkpoint of the CLI run the test
@@ -58,6 +61,35 @@ def global_batch(asm):
             "num_poses": np.asarray(NUM_POSES, np.int32)}
 
 
+SYNC_BN_RPN = dict(layer_nums=(1,), ds_layer_strides=(1,), ds_num_filters=(4,),
+                   us_layer_strides=(1,), us_num_filters=(5,), num_input_features=3)
+
+
+def sync_bn_input():
+    """The deterministic global batch of the sync BatchNorm case and the
+    weights of its loss, sum(out * weights)."""
+    rng = np.random.default_rng(1)
+    return (rng.normal(loc=0.3, size=(4, 6, 6, 3)).astype(np.float32),
+            rng.normal(size=(4, 6, 6, 5)).astype(np.float32))
+
+
+def sync_bn_case(x, w, sync_bn_axis):
+    """Two train-mode calls of a seed-0 RPN on ``x``; the second's loss
+    sum(out * w) differentiated.  Returns output, running stats, input
+    gradient and the parameters' gradients as lists."""
+    from rtpose_tpu_torch.models import RPN
+    rpn = init_weights(RPN(**SYNC_BN_RPN, sync_bn_axis=sync_bn_axis),
+                       torch.Generator().manual_seed(0))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    rpn(xt, train=True)
+    out = rpn(xt, train=True)
+    (out * torch.from_numpy(w)).sum().backward()
+    return dict(out=out.detach().numpy().tolist(),
+                buffers={k: v.numpy().tolist() for k, v in rpn.named_buffers()},
+                grad_x=xt.grad.numpy().tolist(),
+                grad_params={k: p.grad.numpy().tolist() for k, p in rpn.named_parameters()})
+
+
 def flat_params(model):
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy().copy()
 
@@ -96,6 +128,11 @@ def main():
     res["nan_step"] = dict(loss=float(m["loss"]), skipped=float(m["skipped"]),
                            optimizer_steps=int(opt.step_count), global_step=int(state.step),
                            unchanged=bool(np.array_equal(flat_params(model), params["step2"])))
+
+    x, w = sync_bn_input()
+    half = x.shape[0] // world
+    res["sync_bn"] = sync_bn_case(x[rank * half:(rank + 1) * half],
+                                  w[rank * half:(rank + 1) * half], "data")
 
     res["gathered"] = parallel.all_gather_objects({"rank": rank,
                                                    "last_loss": res["steps"][-1]["loss"]})
