@@ -125,7 +125,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      teacher frozen through ``utils.freeze``: three AdamW steps of
      ``distill_loss`` (per step 1 preprocess, 14 + 6 conv and 14 grad-input
      launches), the teacher bit-equal after them and the student moved, ms a
-     step, the first loss against the CPU in float32 within phase 14's 2 %.
+     step, the first loss against the CPU in float32 within phase 14's 2 %;
+ 27. the per-segment breakdown (``rtpose_tpu_torch.tools.perf_breakdown``)
+     in a process of its own (``--breakdown_worker``) at full width on
+     seeded weights: the inference segments (backbone, hm
+     tower, peak argmax, sparse reg patches, the whole ``predict_sparse``)
+     in bf16, int8 and int8 with the resizes at B=1 and B=8, the train
+     segments (targets, loss forward, forward + backward, optimizer, the
+     whole step), the backbone's stages and the hm tower's convs at B=8:
+     device ms (the profiler's device operations over the calls), host ms,
+     GFLOP and utilization per segment; each segment's K3 launches a call
+     (14 a forward, 14 grad-input a step), the segments' sum against the
+     whole predict, and ``utils.flops.estimate_flops`` on the card equal to
+     the CPU's for ``predict_sparse`` (bf16, int8) and one loss forward +
+     backward at B=1.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times:
 ``CALLS`` calls captured in one CUDA graph, replayed between CUDA events,
 so no host work falls in the window; ``wrapper_ms`` times the Python
@@ -133,8 +146,8 @@ wrapper called eagerly, host work included.
 Prints a ``{"e2e": ...}`` line, a ``{"train": ...}`` line, a
 ``{"serving": ...}`` line, a ``{"slices": ...}`` line (phases 20-24), a
 ``{"dp": ...}`` line (phase 25, rank 0's numbers), a ``{"rest": ...}`` line
-(phase 26), a ``{"kernels": [...]}`` line, then the nvidia-smi line again, then
-``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
+(phase 26), a ``{"breakdown": ...}`` line (phase 27), a ``{"kernels": [...]}``
+line, then the nvidia-smi line again, then ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
 ``launches`` is its wrapper's count on its own path (eval for the
 preprocess and forward conv kernels, training for the conv backward; the
 single-cube preprocess form is on no path of the port, as in the JAX
@@ -2901,6 +2914,147 @@ def phase_rest(tmp, cfg_path, ckpt, dev):
     return rest
 
 
+BREAKDOWN_ITERS = 3     # calls per segment between CUDA events, and again traced
+BREAKDOWN_WORKER = "--breakdown_worker"   # chip_smoke.py --breakdown_worker OUT: phase 27
+BREAKDOWN_TIMEOUT_S = 600
+BREAKDOWN_SUM_FRAC = 0.25   # the inference segments' sum against the whole predict
+BREAKDOWN_K3 = dict(        # K3 launches a call of each segment: (forward, grad-input)
+    infer=dict(backbone=(14, 0), hm=(0, 0), argmax=(0, 0), reg=(0, 0), full=(14, 0)),
+    train=dict(targets=(0, 0), loss_fwd=(14, 0), fwd_bwd=(14, 14), optimizer=(0, 0),
+               full=(14, 14)),
+    backbone=dict(layer1=(2, 0), stage2=(4, 0), stage3=(4, 0), stage4=(4, 0),
+                  transition2=(0, 0), transition3=(0, 0), final_fuse=(0, 0)),
+    head=dict(conv0=(0, 0), out_f32=(0, 0), out_bf16=(0, 0), out8_bf16=(0, 0)))
+
+
+def breakdown_counts(tag, segs, want, kernel="conv3d_k3"):
+    """Each segment's launches a call of ``kernel`` (forward) and of the
+    grad-input equal to ``want``; every row's device time positive."""
+    for name, (fwd, bwd) in want.items():
+        got = segs[name]["launches"]
+        if got[kernel] != fwd or got["conv3d_k3_bwd"] != bwd:
+            fail(f"breakdown {tag} {name}: launches a call {got}, want {kernel} {fwd}, "
+                 f"grad-input {bwd}")
+        if not segs[name]["ms"] > 0:
+            fail(f"breakdown {tag} {name}: device time {segs[name]['ms']}")
+
+
+def phase_breakdown(dev):
+    """Phase 27: ``rtpose_tpu_torch.tools.perf_breakdown`` at the flagship's
+    full width (seeded weights): the inference segments in bf16, int8 and
+    int8 + resize at B=1 and B=8, the train segments, the backbone's stages
+    and the hm tower's convs at B=8; each segment's device time positive and
+    its kernel launches a call as the path runs them (``BREAKDOWN_K3``); the
+    inference segments' sum against the whole predict (a gap above
+    ``BREAKDOWN_SUM_FRAC`` is printed, not failed); and ``estimate_flops``
+    on the card equal to the CPU's (a float32 copy of the model) for
+    ``predict_sparse`` at B=1 in bf16 and int8 and for one forward +
+    backward of the sparse loss at B=1."""
+    import copy
+
+    import numpy as np
+    import torch
+    from rtpose_tpu_torch.engine import bind_sites
+    from rtpose_tpu_torch.models import build_detector, init_weights
+    from rtpose_tpu_torch.ops import quant
+    from rtpose_tpu_torch.tools import perf_breakdown as pb
+    from rtpose_tpu_torch.utils.flops import estimate_flops
+
+    t0 = time.perf_counter()
+    asm = pb.flagship()
+    shape = asm.input_shape_zyxc
+    rng = np.random.default_rng(0)
+    model = init_weights(asm.model, torch.Generator().manual_seed(0))
+    cfg32 = copy.deepcopy(asm.model_cfg)
+    cfg32["backbone"]["dtype"] = cfg32["pose_head"]["dtype"] = "float32"
+    cpu = build_detector(cfg32)
+    cpu.load_state_dict(model.state_dict())
+    bind_sites(cpu)
+    model = model.to(dev)
+    out, xs = {}, {}
+    for B in (1, 8):
+        timer = pb.SegmentTimer(dev, BREAKDOWN_ITERS, B)
+        xs[B] = x = pb.random_input(rng, (B, *shape), dev)
+        base = out[f"infer_b{B}"] = pb.infer_segments(model, x, timer)
+        int8 = pb.int8_segments(model, x, pb.random_input(rng, (B, *shape), dev), timer, base)
+        for label, segs in int8.items():
+            out[f"{label}_b{B}"] = segs
+        if int8["int8"]["sites"] != INT8_SITES:
+            fail(f"breakdown int8: {int8['int8']['sites']} sites, want {INT8_SITES}")
+        for label in ("infer", "int8", "int8+resize"):
+            segs = out[f"{label}_b{B}"]
+            breakdown_counts(f"{label} B={B}", segs, BREAKDOWN_K3["infer"],
+                             "conv3d_k3" if label == "infer" else "conv3d_k3_int8")
+            gap = abs(segs["sum"]["ms"] - segs["full"]["ms"]) / segs["full"]["ms"]
+            segs["sum_vs_full"] = gap
+            print(f"[breakdown] {label} B={B}: segments sum {segs['sum']['ms']} ms against "
+                  f"the whole predict's {segs['full']['ms']} ms ({100 * gap:.1f} % apart)"
+                  + ("" if gap <= BREAKDOWN_SUM_FRAC else
+                     f"; FINDING: above {100 * BREAKDOWN_SUM_FRAC:.0f} %"))
+    out["infer_wall_s"] = time.perf_counter() - t0
+    timer = pb.SegmentTimer(dev, BREAKDOWN_ITERS, 8)
+    out["backbone_b8"] = pb.backbone_segments(asm, 8, rng, timer)
+    breakdown_counts("backbone B=8", out["backbone_b8"], BREAKDOWN_K3["backbone"])
+    out["head_b8"] = pb.head_segments(asm, 8, rng, timer)
+    breakdown_counts("head B=8", out["head_b8"], BREAKDOWN_K3["head"])
+
+    # the FLOP count, card against CPU, on the seeded weights (before the
+    # train segments move them)
+    t1 = time.perf_counter()
+    x1c = xs[1].cpu()
+    scales = quant.calibration_scales(model.predict_sparse, [xs[1]])
+    counts = {}
+    with torch.inference_mode():
+        counts["predict_sparse_bf16"] = (estimate_flops(model.predict_sparse, xs[1]),
+                                         estimate_flops(cpu.predict_sparse, x1c))
+        with quant.int8_mode(scales):
+            counts["predict_sparse_int8"] = (estimate_flops(model.predict_sparse, xs[1]),
+                                             estimate_flops(cpu.predict_sparse, x1c))
+    b1 = pb.train_batch(asm, xs[1])
+    fb = [pb.train_calls(asm, m, {k: v.to(d) for k, v in b1.items()})["fwd_bwd"]
+          for m, d in ((model, dev), (cpu, torch.device("cpu")))]
+    counts["loss_fwd_bwd"] = (estimate_flops(fb[0]), estimate_flops(fb[1]))
+    for name, (card, host) in counts.items():
+        print(f"[breakdown] estimate_flops {name} B=1: card {card}, CPU {host}")
+        if not card or card != host:
+            fail(f"breakdown: estimate_flops {name} on the card {card} != the CPU's {host}")
+    out["flops_wall_s"] = time.perf_counter() - t1
+
+    out["train_b8"] = pb.train_segments(asm, model, pb.train_batch(asm, xs[8]), timer)
+    breakdown_counts("train B=8", out["train_b8"], BREAKDOWN_K3["train"])
+    out["flops_card_vs_cpu"] = {k: v[0] for k, v in counts.items()}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[breakdown] phase wall {out['wall_s']:.1f} s (inference segments "
+          f"{out['infer_wall_s']:.1f} s, FLOP counts card and CPU {out['flops_wall_s']:.1f} s)")
+    return out
+
+
+def breakdown_worker(out_path) -> int:
+    """Phase 27 in a process of its own: ``phase_breakdown`` on the card,
+    its dict written to ``out_path``."""
+    from rtpose_tpu_torch.api import resolve_device
+    out = phase_breakdown(resolve_device("cuda"))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_breakdown_process(tmp):
+    """Phase 27 through ``--breakdown_worker``: a fresh process, since
+    traces taken late in this one, after the earlier phases' hundreds of
+    profiler traces, lost their first device operations (the kernels of
+    ``tools.perf_breakdown``'s short segments entirely), while the same
+    traces in a fresh process held every one."""
+    out_path = os.path.join(tmp, "breakdown.json")
+    rc, text = run_process_group([sys.executable, os.path.abspath(__file__), BREAKDOWN_WORKER,
+                                  out_path], BREAKDOWN_TIMEOUT_S)
+    print(text, end="")
+    if rc != 0:
+        fail(f"phase 27: the breakdown worker exited {rc}")
+    with open(out_path) as f:
+        return json.load(f)
+
+
 def main() -> int:
     try:
         import torch
@@ -2917,6 +3071,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if len(sys.argv) == 3 and sys.argv[1] == DP_WORKER:
         return dp_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == BREAKDOWN_WORKER:
+        return breakdown_worker(sys.argv[2])
     from rtpose_tpu_torch.api import resolve_device
 
     t_all = time.perf_counter()
@@ -2952,6 +3108,7 @@ def main() -> int:
                       phase=phase_complex(tmp), repeat=phase_repeat(tmp, train_root),
                       lidar=phase_lidar(tmp, dev))
         rest = phase_rest(tmp, cfg_path, ckpt, dev)
+        breakdown = phase_breakdown_process(tmp)
         dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
                                        train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
@@ -3006,6 +3163,7 @@ def main() -> int:
     print(json.dumps({"slices": slices}))
     print(json.dumps({"dp": dp}))
     print(json.dumps({"rest": rest}))
+    print(json.dumps({"breakdown": breakdown}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

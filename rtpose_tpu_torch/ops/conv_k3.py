@@ -29,6 +29,13 @@ the JAX package used XLA's.
   ``grad_weight`` are its two backward halves (a CPU tensor takes the plain
   versions: ``conv3d_k3_reference`` on the flipped weights, and the float32
   weight-gradient of ``F.conv3d`` on bf16-rounded operands).
+
+A launch on raw pointers is invisible to a ``TorchDispatchMode`` such as
+``torch.utils.flop_counter.FlopCounterMode``.  So while one is active
+(``dispatch_mode_active``) the wrappers launch through their
+``torch.ops.rtpose`` custom op (``ops/library.py``), which the mode sees and
+whose CUDA implementation comes back to the wrapper with the mode off: the
+kernel runs either way, and the counter reads the op's registered formula.
 """
 
 from __future__ import annotations
@@ -47,6 +54,19 @@ C = 32
 # forward conv, and the grad-input conv of the backward
 launches = 0
 launches_bwd = 0
+
+
+def dispatch_mode_active() -> bool:
+    """True while a ``TorchDispatchMode`` is active on this thread."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
+def flops(x_shape) -> int:
+    """Operations of one launch on a (B, Z, Y, X, 32) input: two per
+    multiply-add over the full 3x3x3 window (the forward and grad-input
+    alike)."""
+    B, Z, Y, X, _ = x_shape
+    return 2 * B * Z * Y * X * C * C * 27
 
 
 def supports(x: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
@@ -226,6 +246,8 @@ def launch(x: torch.Tensor, wr: torch.Tensor,
     """The kernel on a CUDA (B, Z, Y, X, 32) bf16 input with ``prepare``d
     weights and bias (the forward conv)."""
     global launches
+    if dispatch_mode_active():
+        return torch.ops.rtpose.conv3d_k3(x, wr, bias)
     out = _run(x, wr, bias)
     launches += 1
     return out
@@ -271,11 +293,19 @@ def grad_input(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     and the torch-layout weights: the same conv on ``flip_transpose(w)``,
     bf16 in and out.  A CUDA tensor launches the kernel, a CPU tensor takes
     the plain version."""
-    global launches_bwd
     g = g.to(torch.bfloat16).contiguous()
     if g.device.type == "cpu":
         return conv3d_k3_reference(g, flip_transpose(w))
-    out = _run(g, prepare_flipped(w), None)
+    return launch_grad_input(g, prepare_flipped(w))
+
+
+def launch_grad_input(g: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA (B, Z, Y, X, 32) bf16 output gradient with
+    ``prepare_flipped`` weights (the grad-input conv)."""
+    global launches_bwd
+    if dispatch_mode_active():
+        return torch.ops.rtpose.conv3d_k3_grad_input(g, wr)
+    out = _run(g, wr, None)
     launches_bwd += 1
     return out
 

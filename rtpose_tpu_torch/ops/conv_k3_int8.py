@@ -158,8 +158,11 @@ def conv3d_k3_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 def launch(xq: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
            bias: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The kernel on a CUDA (B, Z, Y, X, 32) int8 input with ``prepare``d
-    weights."""
+    weights.  Under a dispatch mode it launches through its custom op, as
+    ``conv_k3.launch`` does."""
     global launches
+    if conv_k3.dispatch_mode_active():
+        return torch.ops.rtpose.conv3d_k3_int8(xq, wk, scale, bias, out_dtype)
     out = _run(xq, wk, scale, bias, out_dtype)
     launches += 1
     return out

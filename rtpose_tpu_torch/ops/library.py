@@ -7,13 +7,23 @@ serving artifact (``export.py``) reaches the kernels through these ops:
   (``preprocess.fused_preprocess_batch``);
 * ``rtpose::conv3d_k3(x, wr, bias)`` — K3 on ``conv_k3.prepare``d weights;
 * ``rtpose::conv3d_k3_int8(xq, wk, scale, bias, out_dtype)`` — the int8 K3
-  on ``conv_k3_int8.prepare``d weights.
+  on ``conv_k3_int8.prepare``d weights;
+* ``rtpose::conv3d_k3_grad_input(g, wr)`` — K3's grad-input launch on
+  ``conv_k3.prepare_flipped`` weights (no artifact holds it: the wrappers
+  launch through the ops while a dispatch mode is active, ``conv_k3``).
 
 Each has a fake (meta) implementation for tracing, a CUDA implementation
 that calls the kernel's wrapper (which counts the launch), and a CPU
 implementation that is the kernel's plain version.  Importing
 ``rtpose_tpu_torch.ops`` registers them; a loaded artifact needs nothing
 else of the package.
+
+Importing it also registers the conv ops' formulas with
+``torch.utils.flop_counter`` (two operations per multiply-add over the full
+3x3x3 window) and one for ``torch._int_mm`` (2 M K N, the int8 stock
+route's product), where PyTorch has none: so ``FlopCounterMode``
+(``utils.flops.estimate_flops``) counts a conv the same whichever of its
+routes ran.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 from . import conv_k3, conv_k3_int8, preprocess
 
@@ -75,3 +86,34 @@ def _(xq, wk, scale, bias, out_dtype):
 def _(xq, wk, scale, bias, out_dtype):
     conv_k3_int8._check_prepared(wk)
     return torch.empty_like(xq, dtype=out_dtype)
+
+
+@torch.library.custom_op("rtpose::conv3d_k3_grad_input", mutates_args=(), device_types="cpu")
+def conv3d_k3_grad_input_op(g: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
+    return conv_k3.conv3d_k3_reference(g, conv_k3.unprepare(wr))
+
+
+@conv3d_k3_grad_input_op.register_kernel("cuda")
+def _(g, wr):
+    return conv_k3.launch_grad_input(g, wr)
+
+
+@conv3d_k3_grad_input_op.register_fake
+def _(g, wr):
+    return torch.empty_like(g, dtype=torch.bfloat16)
+
+
+def _k3_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return conv_k3.flops(x_shape)
+
+
+def _int_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+for _op, _formula in ((torch.ops.rtpose.conv3d_k3, _k3_flops),
+                      (torch.ops.rtpose.conv3d_k3_grad_input, _k3_flops),
+                      (torch.ops.rtpose.conv3d_k3_int8, _k3_flops),
+                      (torch.ops.aten._int_mm, _int_mm_flops)):
+    if _op not in flop_registry:    # a later PyTorch may count _int_mm itself
+        register_flop_formula(_op)(_formula)

@@ -7,7 +7,7 @@ Counterpart of ``rtpose_tpu/solver/schedules.py:17-121`` (reference
 an int or an integer tensor, as ``one_cycle_values`` takes it.  They fit
 ``AdamOneCycle``'s ``lr_fn`` slot.  No schedule builds a tensor from host
 numbers per call (constants enter as scalars), so a train step using one
-copies nothing from the host.  The augmentation schedules are not ported.
+copies nothing from the host.
 """
 
 from __future__ import annotations

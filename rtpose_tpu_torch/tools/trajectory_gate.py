@@ -60,8 +60,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def last_epoch_loc(work_dir: str):
-    """(epoch, mean loc_loss over its logged intervals) of the last epoch."""
+def epoch_locs(work_dir: str) -> dict:
+    """{epoch: mean loc_loss over its logged intervals} of the run's logs."""
     by_epoch = {}
     for path in sorted(glob.glob(os.path.join(work_dir, "*.log.json"))):
         with open(path) as f:
@@ -72,10 +72,16 @@ def last_epoch_loc(work_dir: str):
                     continue
                 if rec.get("mode") == "train" and "loc_loss" in rec:
                     by_epoch.setdefault(int(rec["epoch"]), []).append(float(rec["loc_loss"]))
-    if not by_epoch:
+    return {ep: sum(v) / len(v) for ep, v in sorted(by_epoch.items())}
+
+
+def last_epoch_loc(work_dir: str):
+    """(epoch, mean loc_loss over its logged intervals) of the last epoch."""
+    locs = epoch_locs(work_dir)
+    if not locs:
         return None, None
-    ep = max(by_epoch)
-    return ep, sum(by_epoch[ep]) / len(by_epoch[ep])
+    ep = max(locs)
+    return ep, locs[ep]
 
 
 def main(argv=None) -> int:
@@ -95,6 +101,8 @@ def main(argv=None) -> int:
     if r.returncode != 0:
         print(f"TRAJECTORY GATE: ERROR (train exited {r.returncode}, logs in {work_dir})")
         return 2
+    for ep, loc in epoch_locs(work_dir).items():
+        print(f"epoch {ep} mean loc {loc}")
     ep, loc = last_epoch_loc(work_dir)
     if loc is None:
         print(f"TRAJECTORY GATE: ERROR (no loc_loss records in {work_dir})")

@@ -623,3 +623,30 @@ def test_box_geometry_card_matches_cpu(dev, seed):
     t_g = assign_roi_targets(b_g[:64], s_g[:64], b_g[100:110], 8)
     t_c = assign_roi_targets(b_c[:64], s_c[:64], b_c[100:110], 8)
     assert torch.equal(t_g["labels"].cpu(), t_c["labels"])
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 64, 160), (2, 5, 13, 37)])
+def test_flop_count_sees_each_kernel_launch(dev, shape):
+    """``utils.flops.estimate_flops`` of one K3 forward, one K3 grad-input
+    and one int8 kernel launch is 2 B Z Y X 32 32 27, and each kernel still
+    launches once (through its custom op, under the counter)."""
+    from rtpose_tpu_torch.ops import conv_k3_int8
+    from rtpose_tpu_torch.utils.flops import estimate_flops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((*shape, 32), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((32, 32, 3, 3, 3), generator=g, device=dev) * 0.05
+    xq = torch.randint(-127, 128, (*shape, 32), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (32, 32, 3, 3, 3), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = torch.full((32,), 1e-3, device=dev)
+    want = 2 * shape[0] * shape[1] * shape[2] * shape[3] * 32 * 32 * 27
+    cases = [("conv3d_k3", lambda: conv_k3.conv3d_k3(x, w)),
+             ("conv3d_k3_bwd", lambda: conv_k3.grad_input(x, w)),
+             ("conv3d_k3_int8", lambda: conv_k3_int8.conv3d_k3_int8(xq, wq, scale))]
+    for name, fn in cases:
+        ops.reset_launch_counts()
+        assert estimate_flops(fn) == want, name
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[name] == 1 and sum(counts.values()) == 1, (name, counts)

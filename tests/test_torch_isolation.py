@@ -45,7 +45,7 @@ def test_fresh_interpreter_loads_no_jax():
         "import rtpose_tpu_torch.ops.nms, rtpose_tpu_torch.ops.grid_sample\n"
         "import rtpose_tpu_torch.models.necks, rtpose_tpu_torch.models.feat_transforms\n"
         "import rtpose_tpu_torch.models.second_stage, rtpose_tpu_torch.models.roi_head\n"
-        "import rtpose_tpu_torch.models.distillation\n"
+        "import rtpose_tpu_torch.models.distillation, rtpose_tpu_torch.tools.perf_breakdown\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
