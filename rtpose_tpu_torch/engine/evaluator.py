@@ -11,6 +11,7 @@ gathered and merged by key (``rtpose_tpu/engine/evaluator.py:134-137``).
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -23,6 +24,7 @@ import torch
 
 from .. import parallel
 from ..core.decode import post_process_pose, post_process_pose_multi
+from ..utils import trace
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[dict]:
@@ -125,44 +127,55 @@ def run_eval(eval_step: Callable, loader, decode_spec, *, device: torch.device,
     t_start = t_end = None
     frames_timed = 0
 
-    for i, batch in enumerate(device_prefetch(loader, device)):
-        if speed_test and i in (start_i, end_i):
-            if cuda:
-                torch.cuda.synchronize(device)
-            if i == start_i:
-                t_start = time.perf_counter()
-            else:
-                t_end = time.perf_counter()
-        valid = int(batch["valid"])
-        if speed_test and start_i <= i < end_i:
-            frames_timed += valid
-        per_task = eval_step({k: v for k, v in batch.items()
-                              if k not in ("meta", "valid")})
-        metas = batch["meta"][:valid]
-        # every task's outputs to the host with one wait: non-blocking copies
-        # into pinned memory, then one stream synchronize
-        per_task = [[t[:valid].to("cpu", non_blocking=cuda) for t in outs]
-                    for outs in per_task]
-        if cuda:
-            torch.cuda.current_stream(device).synchronize()
-        merged = None
-        for outs in per_task:
-            if len(outs) == 2:          # the multi-person decode
-                kpts, scores = outs
-                outs = post_process_pose_multi(kpts.numpy(), scores.numpy(), decode_spec,
-                                               metas=metas)
-            else:
-                kpts, scores, labels = outs
-                outs = post_process_pose(kpts.numpy(), scores.numpy(), labels.numpy(),
-                                         decode_spec, metas=metas, one_hm=one_hm)
-            if merged is None:
-                merged = outs
-            else:
-                for m, o in zip(merged, outs):
-                    m["keypoints"] += o["keypoints"]
-        for out in merged:
-            meta = out.pop("metadata")
-            detections[f"{meta['seq']}/{meta['frame']}/{meta['rdr_frame']}"] = out
+    batches = device_prefetch(loader, device)
+    try:
+        for i in itertools.count():
+            with trace.span("eval.next_batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            if speed_test and i in (start_i, end_i):
+                if cuda:
+                    torch.cuda.synchronize(device)
+                if i == start_i:
+                    t_start = time.perf_counter()
+                else:
+                    t_end = time.perf_counter()
+            valid = int(batch["valid"])
+            if speed_test and start_i <= i < end_i:
+                frames_timed += valid
+            with trace.span("eval.step"):
+                per_task = eval_step({k: v for k, v in batch.items()
+                                      if k not in ("meta", "valid")})
+            metas = batch["meta"][:valid]
+            # every task's outputs to the host with one wait: non-blocking
+            # copies into pinned memory, then one stream synchronize
+            with trace.span("eval.sync"):
+                per_task = [[t[:valid].to("cpu", non_blocking=cuda) for t in outs]
+                            for outs in per_task]
+                if cuda:
+                    torch.cuda.current_stream(device).synchronize()
+            with trace.span("eval.post"):
+                merged = None
+                for outs in per_task:
+                    if len(outs) == 2:          # the multi-person decode
+                        kpts, scores = outs
+                        outs = post_process_pose_multi(kpts.numpy(), scores.numpy(),
+                                                       decode_spec, metas=metas)
+                    else:
+                        kpts, scores, labels = outs
+                        outs = post_process_pose(kpts.numpy(), scores.numpy(), labels.numpy(),
+                                                 decode_spec, metas=metas, one_hm=one_hm)
+                    if merged is None:
+                        merged = outs
+                    else:
+                        for m, o in zip(merged, outs):
+                            m["keypoints"] += o["keypoints"]
+                for out in merged:
+                    meta = out.pop("metadata")
+                    detections[f"{meta['seq']}/{meta['frame']}/{meta['rdr_frame']}"] = out
+    finally:
+        batches.close()
 
     sec_per_frame = None
     if speed_test and t_start is not None and t_end is not None and frames_timed:

@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import trace
+
 PRIORITIES = {
     "HIGHEST": 0, "VERY_HIGH": 10, "HIGH": 30, "NORMAL": 50,
     "LOW": 70, "VERY_LOW": 90, "LOWEST": 100,
@@ -153,7 +155,8 @@ class CheckpointHook(Hook):
 
 def start_trace(device: torch.device):
     """A started ``torch.profiler`` trace of host and, on a card, device
-    activity."""
+    activity, with the port's spans on as named ranges
+    (``utils.trace``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -161,14 +164,17 @@ def start_trace(device: torch.device):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    trace.enable(profiler_ranges=True)
     return prof
 
 
 def stop_trace(prof, device: torch.device, log_dir: str) -> str:
-    """Wait for the device's traced work, stop the trace and write it as a
-    Chrome trace ``<log_dir>/trace.json``; returns the path."""
+    """Wait for the device's traced work, turn the spans off, stop the
+    trace and write it as a Chrome trace ``<log_dir>/trace.json``; returns
+    the path."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    trace.disable()
     prof.stop()
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")

@@ -43,6 +43,7 @@ from ..core.targets import PoseTargetSpec, assign_pose_targets
 from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
 from ..ops.preprocess import fused_preprocess_batch
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -196,20 +197,25 @@ def make_train_step(model, head, spec: PoseTargetSpec, optimizer,
             raise ValueError("train_step: the state holds another model or optimizer")
         for p in params:
             p.grad = None
-        loss, losses = loss_fn(batch, state.step,
-                               parallel.all_reduce_sum_ if data_parallel else None)
-        loss.backward()
+        with trace.span("train.forward"):
+            loss, losses = loss_fn(batch, state.step,
+                                   parallel.all_reduce_sum_ if data_parallel else None)
+        with trace.span("train.backward"):
+            loss.backward()
         terms = [loss.detach(), torch.stack(losses["hm_loss"]).sum().detach(),
                  torch.stack(losses["loc_loss"]).sum().detach(),
                  torch.stack(losses["num_positive"]).sum().detach(),
                  losses["loc_loss_elem"][0].detach()]
         grad = None
         if data_parallel:   # the ranks' gradients and shares, summed in one buffer
-            total = parallel.all_reduce_sum_(optimizer.flat_grad(*(t.reshape(-1) for t in terms)))
+            with trace.span("train.allreduce"):
+                total = parallel.all_reduce_sum_(
+                    optimizer.flat_grad(*(t.reshape(-1) for t in terms)))
             grad, glob = total[:n_grad], total[n_grad:]
             terms = [glob[0], glob[1], glob[2], glob[3], glob[4:]]
-        finite = torch.isfinite(terms[0])
-        grad_norm = optimizer.step(finite=finite, grad=grad)
+        with trace.span("train.optimizer"):
+            finite = torch.isfinite(terms[0])
+            grad_norm = optimizer.step(finite=finite, grad=grad)
         for p in params:
             p.grad = None
         metrics = dict(loss=terms[0], hm_loss=terms[1], loc_loss=terms[2],
@@ -402,10 +408,11 @@ def make_eval_step(model, decode_spec, input_key: Optional[str] = "rdr_tensor",
                     hms[t] = hms[t] + torch.sigmoid(hm)
                     regs[t] = regs[t] + reg
             out = []
-            for hm_sum, reg_sum in zip(hms, regs):
-                p = torch.clamp(hm_sum / n_sets, 1e-6, 1.0 - 1e-6)
-                logits = torch.log(p) - torch.log1p(-p)
-                out.append(decode_pose_preds(logits, reg_sum / n_sets, decode_spec))
+            with trace.span("eval.decode"):
+                for hm_sum, reg_sum in zip(hms, regs):
+                    p = torch.clamp(hm_sum / n_sets, 1e-6, 1.0 - 1e-6)
+                    logits = torch.log(p) - torch.log1p(-p)
+                    out.append(decode_pose_preds(logits, reg_sum / n_sets, decode_spec))
             return out
 
         return tta_step
@@ -415,11 +422,15 @@ def make_eval_step(model, decode_spec, input_key: Optional[str] = "rdr_tensor",
         x = model_input_of(batch, input_key, preprocess)
         if multi_poses > 1:
             preds = model(x)
-            return [decode_pose_multi(preds[0]["hm"], preds[0]["reg"], decode_spec,
-                                      max_objects=multi_poses)]
+            with trace.span("eval.decode"):
+                return [decode_pose_multi(preds[0]["hm"], preds[0]["reg"], decode_spec,
+                                          max_objects=multi_poses)]
         if sparse:
             hm, reg_at_peak, peak_ind = model.predict_sparse(x)
-            return [decode_pose_sparse(hm, reg_at_peak, peak_ind, decode_spec)]
-        return model.pose_head.predict(model(x), decode_spec)
+            with trace.span("eval.decode"):
+                return [decode_pose_sparse(hm, reg_at_peak, peak_ind, decode_spec)]
+        preds = model(x)
+        with trace.span("eval.decode"):
+            return model.pose_head.predict(preds, decode_spec)
 
     return eval_step

@@ -30,6 +30,7 @@ collectives.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -41,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from .. import parallel
+from ..utils import trace
 from .checkpoint import load_training_checkpoint, save_training_checkpoint
 from .evaluator import device_prefetch
 from .hooks import CheckpointHook, Hook, LoggerHook, SamplerSeedHook
@@ -255,13 +257,18 @@ class Trainer:
         batches = (iter(loader) if getattr(loader, "device_resident", False)
                    else device_prefetch(loader, self.device))
         try:
-            for i, batch in enumerate(batches):
+            for i in itertools.count():
+                with trace.span("train.next_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 self.inner_iter = i
                 self.call_hook("before_train_iter")
                 t_data = time.perf_counter()
                 batch.pop("meta", None)    # the step takes tensors only
                 batch.pop("valid", None)   # train batches are always full
-                self.state, metrics = self.train_step(self.state, batch)
+                with trace.span("train.step"):
+                    self.state, metrics = self.train_step(self.state, batch)
                 self._host_step += 1
                 self._pending.append(metrics)
                 t_done = time.perf_counter()

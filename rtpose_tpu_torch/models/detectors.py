@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from ..core.decode import flat_argmax
 from ..registry import BACKBONES, DETECTORS, HEADS, NECKS, READERS, build_from_cfg
+from ..utils import trace
 from .center_head import SepHead
 from .dcn_head import Conv2dNHWC, DCNSepHead, DeformConv2d, FeatureAdaption, LayerNormNHWC
 from .layers import GroupNorm8, TorchConv3d
@@ -107,14 +108,18 @@ class RadarPoseNet(nn.Module):
 
         Returns (hm (B, Z, Y, X, C) logits, reg_at_peak (B, D), peak_ind (B,)).
         """
-        feat = self.extract_feat(rdr_tensor)
-        hm = self.pose_head(feat, branch="hm")[0]["hm"]
-        B, Z, Y, X, C = hm.shape
-        flat = flat_argmax(hm.reshape(B, -1, C)[..., 0])        # pelvis class
-        z = flat // (Y * X)
-        y = (flat % (Y * X)) // X
-        x = flat % X
-        return hm, self._reg_patches(feat, z, y, x, (Z, Y, X)), flat
+        with trace.span("predict.backbone"):
+            feat = self.extract_feat(rdr_tensor)
+        with trace.span("predict.hm"):
+            hm = self.pose_head(feat, branch="hm")[0]["hm"]
+            B, Z, Y, X, C = hm.shape
+            flat = flat_argmax(hm.reshape(B, -1, C)[..., 0])        # pelvis class
+            z = flat // (Y * X)
+            y = (flat % (Y * X)) // X
+            x = flat % X
+        with trace.span("predict.reg"):
+            reg = self._reg_patches(feat, z, y, x, (Z, Y, X))
+        return hm, reg, flat
 
 
 def build_detector(cfg: dict):

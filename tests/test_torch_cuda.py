@@ -650,3 +650,34 @@ def test_flop_count_sees_each_kernel_launch(dev, shape):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         assert counts[name] == 1 and sum(counts.values()) == 1, (name, counts)
+
+
+def test_span_encloses_its_kernel_on_the_profilers_clock(dev):
+    """A host span around a spin kernel and the wait for it encloses the
+    kernel's device interval in a CUDA-only ``torch.profiler`` trace, to
+    within 50 us: the spans and the device trace share one clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtpose_tpu_torch.utils import trace
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace.enable()
+        try:
+            for _ in range(3):
+                with trace.span("spin"):
+                    torch.cuda._sleep(2_000_000)       # about a millisecond
+                    torch.cuda.synchronize(dev)
+        finally:
+            trace.disable()
+            spans = trace.take()
+    kernels = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA and "spin_kernel" in e.name())
+    assert len(spans) == len(kernels) == 3
+    for (_, _, t0, t1), (k0, k1) in zip(sorted(spans, key=lambda s: s[2]), kernels):
+        print(f"span starts {(k0 - t0) / 1e3:.1f} us before its kernel, "
+              f"ends {(t1 - k1) / 1e3:.1f} us after it")
+        assert t0 <= k0 + 50_000 and k1 <= t1 + 50_000
+
