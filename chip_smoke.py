@@ -20,11 +20,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      as .pth, and ``rtpose_tpu_torch.tools.test`` on configs/cruw_pose/
      hr3d_one_hm_doppler.py with --device_preprocess --speed_test (each
      speed window is the middle third: 100 frames at B=1);
-  6. launch counts of that run: every kernel of the path launched
-     (preprocess once per frame, conv 14 times per forward);
+  6. launch counts of that run: the eval step's CUDA graph engaged (one
+     eager call, one capture, a replay for each other frame) and the
+     wrappers passed by three forwards (eager, the capture's warm-up, the
+     capture);
   7. four more speed windows, then one run under torch.profiler: device
-     time and operations per frame, the card's idle share, and the
-     kernels with the most device time;
+     time and operations per frame, the card's idle share, the kernels
+     with the most device time, and every kernel of the path launched
+     (preprocess once per forward, conv 14 times), counted by symbol in
+     the trace and checked against the wrappers and the graph replays;
   8. one frame through the port on the card (bf16 + kernels) against the
      same frame and weights through the port on the CPU in float32;
   9. the conv backward (``Conv3dK3``): grad-input through the K3 kernel on
@@ -159,7 +163,13 @@ launches are kernels counted by name in the traced fused epoch
 symbol and are counted together).  ``path_launches`` gives each kernel's
 count on each slice path's own runs (phases 20-24; the LiDAR path's TTA
 eval and its two artifacts too), on phase 25's rank 0 and on phase 26's
-box-AP evals and distillation steps.
+box-AP evals and distillation steps.  The eval step's CUDA-graph replays
+pass no wrapper either: a ``tools.test`` run's counts (phase 7's from its
+traced run, the slices', phase 25's and 26's) add ``replays x
+launches_per_replay`` to the wrappers' and are checked against K1's and
+K3's launches counted by symbol in the run's CUDA-only trace
+(``eval_launches``); a capture's warm-up is one forward more than the run's
+frames or batches.
 """
 
 from __future__ import annotations
@@ -242,6 +252,8 @@ K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
 TRACE_EDGE_S = 0.1  # idle card between a traced epoch and its trace window's edges
+TRACE_LEAD_S = 1.0  # idle card at either edge of a traced run (``cuda_trace``)
+TRACE_SPINS = 256   # spin kernels ahead of a traced run (``cuda_trace``)
 
 
 def fail(msg: str) -> None:
@@ -932,8 +944,12 @@ def phase_e2e(tmp, cfg_path, ckpt):
     t0 = time.perf_counter()
     out = port_test.main(test_argv(tmp, cfg_path, ckpt))
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    print(f"[e2e] tools.test: {wall:.1f} s wall, launch counts {counts}")
+    counts, graphs = ops.launch_counts(), out["eval_graphs"]
+    print(f"[e2e] tools.test: {wall:.1f} s wall, launch counts {counts}, eval graphs {graphs}")
+    # B=1: one eager call, one capture, a replay for every other frame; the
+    # wrappers see the eager call, the capture's warm-up and the capture
+    if (graphs["eager"], graphs["captures"], graphs["replays"]) != (1, 1, FRAMES - 2):
+        fail(f"eval graphs {graphs}, expected 1 eager call, 1 capture, {FRAMES - 2} replays")
     mpjpe = out["results"]["MPJPE"]
     if not (mpjpe == mpjpe and 0 < mpjpe < float("inf")):
         fail(f"MPJPE {mpjpe} is not a finite positive number")
@@ -941,23 +957,21 @@ def phase_e2e(tmp, cfg_path, ckpt):
         fail("no speed-test time")
     if len(out["detections"]) != FRAMES:
         fail(f"{len(out['detections'])} frames decoded, expected {FRAMES}")
-    if counts["preprocess"] != FRAMES:
-        fail(f"preprocess kernel launched {counts['preprocess']} times, expected {FRAMES}")
-    if counts["conv3d_k3"] != 14 * FRAMES or counts["conv3d_k3_int8"] != 0:
-        fail(f"conv kernels launched {counts['conv3d_k3']} / {counts['conv3d_k3_int8']} "
-             f"(bf16 / int8) times, expected {14 * FRAMES} / 0")
+    if counts["preprocess"] != 3 or counts["conv3d_k3"] != 14 * 3 or counts["conv3d_k3_int8"]:
+        fail(f"the wrappers counted {counts}, expected 3 forwards' 1 preprocess and 14 bf16 "
+             "conv launches each")
     print(f"[e2e] MPJPE {mpjpe} mm, {out['sec_per_frame'] * 1e3:.3f} ms/frame at B=1")
     return out, counts
 
 
 def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
     """SPEED_RUNS - 1 more speed windows of tools.test, then one run traced
-    with torch.profiler (device activity only)."""
+    with torch.profiler (device activity only, ``cuda_trace``): its
+    launches, checked against the trace by kernel symbol (``eval_launches``),
+    are the e2e path's (a forward each frame and the capture's warm-up)."""
     import statistics
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    from rtpose_tpu_torch import ops as port_ops
     from rtpose_tpu_torch.tools import test as port_test
 
     argv = test_argv(tmp, cfg_path, ckpt)
@@ -967,20 +981,23 @@ def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
     med = statistics.median(speed)
     print(f"[e2e] speed windows of {window} frames at B=1: {speed} ms/frame; "
           f"median {med}, spread {max(speed) - min(speed)}")
+    port_ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        port_test.main(argv)
-        torch.cuda.synchronize()
+    out, ops, symbols = cuda_trace(lambda: port_test.main(argv))
     traced_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
         fail("the trace holds no device operation")
+    launches = eval_launches("e2e traced test", out, symbols)
+    forwards = FRAMES + eval_captures(out)
+    if launches["preprocess"] != forwards or launches["conv3d_k3"] != 14 * forwards:
+        fail(f"e2e traced test: launches {launches}, expected {forwards} forwards' 1 "
+             "preprocess and 14 bf16 conv launches each")
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / FRAMES
     n_ops = sum(e.count for e in ops) / FRAMES
     print(f"[trace] {traced_wall:.1f} s traced run, {time.perf_counter() - t0:.1f} s to "
-          f"read the trace; device busy {busy} ms/frame, {n_ops} device operations/frame")
+          f"read the trace; device busy {busy} ms/frame, {n_ops} device operations/frame; "
+          f"kernels by symbol {symbols}, by wrapper and graph replay {launches}")
     k3 = [e for e in ops if "conv3d_k3_kernel" in e.key]
     print(f"[trace] K3 kernel: {sum(e.self_device_time_total for e in k3) / 1e3 / FRAMES} "
           f"ms/frame in {sum(e.count for e in k3) / FRAMES} launches/frame")
@@ -991,7 +1008,8 @@ def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
     return dict(frames=FRAMES, window_frames=window, speed_ms_per_frame=speed,
                 speed_median_ms=med, device_busy_ms_per_frame=busy,
                 k3_ms_per_frame=sum(e.self_device_time_total for e in k3) / 1e3 / FRAMES,
-                device_ops_per_frame=n_ops, device_idle_share=1 - busy / med)
+                device_ops_per_frame=n_ops, device_idle_share=1 - busy / med,
+                launches=launches, kernel_symbols=symbols)
 
 
 def phase_cpu_compare(cfg, ckpt, detections, dev):
@@ -1588,6 +1606,69 @@ def slice_config(tmp, tag, name, root):
     return path
 
 
+# each hand kernel's symbol in a device trace -> the wrappers that launch it
+KERNEL_SYMBOLS = {"preprocess_kernel": ("preprocess", "preprocess_single"),
+                  "conv3d_k3_kernel": ("conv3d_k3", "conv3d_k3_bwd")}
+
+
+def cuda_trace(fn):
+    """``fn()`` under a CUDA-only torch.profiler trace: its result, the
+    trace's device operations (``key_averages``, the spin kernels out) and
+    the hand kernels' launches by symbol (``KERNEL_SYMBOLS``).  Traces taken
+    late in a process lost the device activity of their first ~0.1-0.2 s
+    (phase 25's traced epoch its first step; phase 26's box-AP trace 39 of
+    64 spin kernels queued 0.1 s in), so the card idles ``TRACE_LEAD_S`` at
+    either edge and ``TRACE_SPINS`` spin kernels go first; a trace that kept
+    no more than half of them fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_LEAD_S)
+        for _ in range(TRACE_SPINS):
+            torch.cuda._sleep(1000)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_LEAD_S)
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spins = sum(e.count for e in dev_ops if "spin_kernel" in e.key)
+    if spins <= TRACE_SPINS // 2:
+        fail(f"a trace kept {spins} of its {TRACE_SPINS} spin kernels: it may have lost the "
+             "traced run's first operations")
+    dev_ops = [e for e in dev_ops if "spin_kernel" not in e.key]
+    return out, dev_ops, {s: sum(e.count for e in dev_ops if s in e.key) for s in KERNEL_SYMBOLS}
+
+
+def eval_launches(tag, out, symbols):
+    """The kernels a traced ``tools.test`` run launched, by wrapper (reset
+    just before the run), each checked against the run's trace (``symbols``,
+    ``cuda_trace``'s count by kernel symbol).  A replay of the eval step's
+    CUDA graphs (``engine.EvalGraphs``) passes no wrapper: the wrappers count
+    each eager call, each capture's warm-up forward and each capture, which
+    launches nothing and is replayed once, so a kernel launched the wrappers'
+    count plus ``replays x launches_per_replay``; the trace has to hold that
+    many of each symbol, and a kernel no symbol names (int8) no replay."""
+    from rtpose_tpu_torch import ops
+
+    counts, g = ops.launch_counts(), out["eval_graphs"]
+    per, replays = ({}, 0) if g is None else (g["launches_per_replay"], g["replays"])
+    launches = {k: v + replays * per.get(k, 0) for k, v in counts.items()}
+    named = {k for ks in KERNEL_SYMBOLS.values() for k in ks}
+    if (any(symbols[s] != sum(launches[k] for k in ks) for s, ks in KERNEL_SYMBOLS.items())
+            or any(launches[k] != counts[k] for k in counts if k not in named)):
+        fail(f"{tag}: the trace counted {symbols} by kernel symbol, the wrappers {counts} "
+             f"and {replays} graph replays of {per} launches each")
+    return launches
+
+
+def eval_captures(out):
+    """The eval step's graph captures in a ``tools.test`` run (0 for a step
+    that is no ``engine.EvalGraphs``): each adds one warm-up forward."""
+    return 0 if out["eval_graphs"] is None else out["eval_graphs"]["captures"]
+
+
 def slice_counts(tag, counts, want):
     """The wrappers' launch counts of one run against ``want`` (every other
     kernel: 0)."""
@@ -1640,20 +1721,15 @@ def slice_train(tag, argv, steps, per_step, counted_steps=None):
 
 
 def traced(tag, fn, n, unit):
-    """``fn()`` under torch.profiler (device activity): device busy ms and
-    operations per ``unit`` (``n`` of them), the top operations, and the
+    """``fn()`` under torch.profiler (device activity, ``cuda_trace``): device
+    busy ms and operations per ``unit`` (``n`` of them), the top operations,
+    the hand kernels' launches by symbol, and the
     deformable gather (``index_select``: ``vectorized_gather_kernel``) and
     its scatter-add backward (``index_add_``: ``indexFunc*``) where they
     ran."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    out, ops, symbols = cuda_trace(fn)
     wall = time.perf_counter() - t0
-    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
         fail(f"{tag}: the trace holds no device operation")
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / n
@@ -1673,7 +1749,7 @@ def traced(tag, fn, n, unit):
         print(f"[{tag} trace] {e.key[:80]:<80} {e.self_device_time_total / 1e3 / n:9.4f} "
               f"ms/{unit} {e.count / n:9.2f} calls/{unit}")
     return out, dict(device_busy_ms=busy, device_ops=n_ops, k3_ms=k3, index_select_ms=gather,
-                     index_add_ms=scatter,
+                     index_add_ms=scatter, kernel_symbols=symbols,
                      top=[(e.key[:80], e.self_device_time_total / 1e3 / n, e.count / n)
                           for e in top])
 
@@ -1690,7 +1766,8 @@ def slice_test(tag, cfg_path, ckpt, work, frames, per_forward, forwards, persons
     out, trace = traced(f"{tag} test", lambda: port_test.main(
         [cfg_path, "--checkpoint", ckpt, "--work_dir", work, "--testset", *extra]),
         frames, "frame")
-    counts = ops.launch_counts()
+    counts = eval_launches(f"{tag} test", out, trace["kernel_symbols"])
+    forwards += eval_captures(out)
     slice_counts(f"{tag} test", counts, {k: v * forwards for k, v in per_forward.items()})
     dets, mpjpe = out["detections"], out["results"]["MPJPE"]
     if len(dets) != frames or any(len(d["keypoints"]) != 15 * persons for d in dets.values()):
@@ -2243,17 +2320,19 @@ def dp_worker(spec_path) -> int:
     res["world"], res["device"] = world, str(dev)
     loader = trainer.loader
     loader.set_epoch(TRAIN_EPOCHS)
-    steps = 0
     ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def epoch():
+        steps = 0
         for batch in device_prefetch(loader, dev):
             batch.pop("meta", None)
             batch.pop("valid", None)
             trainer.state, metrics = trainer.train_step(trainer.state, batch)
             steps += 1
-        torch.cuda.synchronize()
-    res["train_trace"] = dp_trace_summary(prof.key_averages(), steps)
+        return steps, metrics
+
+    (steps, metrics), dev_ops, _ = cuda_trace(epoch)
+    res["train_trace"] = dp_trace_summary(dev_ops, steps)
     res["train_trace"]["launches"] = ops.launch_counts()
     res["train_trace"]["skipped"] = float(metrics["skipped"])
 
@@ -2327,11 +2406,12 @@ def dp_worker(spec_path) -> int:
     ckpt = os.path.join(out, "work", "checkpoints", f"epoch_{TRAIN_EPOCHS}.pth")
     ops.reset_launch_counts()
     parallel.reset_collective_counts()
-    got = port_test.main([cfg_path, "--checkpoint", ckpt, "--work_dir",
-                          os.path.join(out, "test"), "--testset", "--device_preprocess",
-                          "--multihost"])
+    got, _, symbols = cuda_trace(lambda: port_test.main(
+        [cfg_path, "--checkpoint", ckpt, "--work_dir", os.path.join(out, "test"), "--testset",
+         "--device_preprocess", "--multihost"]))
     res["test"] = dict(mpjpe=None if got["results"] is None else got["results"]["MPJPE"],
-                       keys=sorted(got["detections"]), launches=ops.launch_counts(),
+                       keys=sorted(got["detections"]),
+                       launches=eval_launches("phase 25 test", got, symbols),
                        collectives=parallel.collective_counts())
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -2567,8 +2647,9 @@ def rest_box_ap(tmp, cfg_path, ckpt):
     """tools.test on the flagship with the host loader (native C++ cube
     loader, then the numpy path) and ``EVAL_BOX_AP``: box AP beside MPJPE,
     the same detections evaluated again by the port's evaluation, eval
-    ms/frame with ``use_native`` on and off, launch counts (no preprocess on
-    the card: the host normalizes)."""
+    ms/frame with ``use_native`` on and off (under a CUDA-only trace),
+    launch counts checked against it (no preprocess on the card: the host
+    normalizes)."""
     import numpy as np
     from rtpose_tpu_torch import native, ops
     from rtpose_tpu_torch.api import build_dataset_from_cfg
@@ -2584,15 +2665,17 @@ def rest_box_ap(tmp, cfg_path, ckpt):
                            "DATASET['EVAL_BOX_AP'] = True\n" + extra)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        out = port_test.main([path, "--checkpoint", ckpt, "--work_dir",
-                              os.path.join(tmp, f"rest_{tag}"), "--testset", "--speed_test"])
+        out, _, symbols = cuda_trace(lambda: port_test.main(
+            [path, "--checkpoint", ckpt, "--work_dir", os.path.join(tmp, f"rest_{tag}"),
+             "--testset", "--speed_test"]))
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = eval_launches(f"box AP ({tag})", out, symbols)
         if len(out["detections"]) != FRAMES:
             fail(f"box AP ({tag}): {len(out['detections'])} frames decoded, expected {FRAMES}")
-        if counts["preprocess"] != 0 or counts["conv3d_k3"] != K3_PER_STEP * FRAMES:
+        forwards = FRAMES + eval_captures(out)
+        if counts["preprocess"] != 0 or counts["conv3d_k3"] != K3_PER_STEP * forwards:
             fail(f"box AP ({tag}): launch counts {counts}, expected no preprocess and "
-                 f"{K3_PER_STEP * FRAMES} conv launches")
+                 f"{K3_PER_STEP * forwards} conv launches")
         box_ap = out["results"]["box_ap"]
         aps = [box_ap[m]["Pedestrian"] for m in ("bev", "3d")]
         if not all(0.0 <= a <= 1.0 for a in aps):
@@ -3115,13 +3198,13 @@ def main() -> int:
     k1, k2, k3, k3_bwd, k3_int8 = kernels
     # the serving path's own run: the int8 artifact through tools.test
     k3_int8["launches"] = serving["launches"]["int8"]["conv3d_k3_int8"]
-    k1["launches"] = counts["preprocess"]
+    k1["launches"] = e2e["launches"]["preprocess"]
     # on no path: its wrapper's count over the eval run and every training run
     k2["launches"] = counts["preprocess_single"] + sum(
         r["preprocess_single"] for r in (tc, train["device_cache"]["launches"],
                                          train["fused"]["wrapper_launches"],
                                          train["stream"]["launches"]))
-    k3["launches"] = counts["conv3d_k3"]
+    k3["launches"] = e2e["launches"]["conv3d_k3"]
     k3_bwd["launches"] = tc["conv3d_k3_bwd"]
     for k, name in ((k1, "preprocess"), (k3, "conv3d_k3"), (k3_bwd, "conv3d_k3_bwd")):
         k["kernel_ms"] = k["ms"]

@@ -41,15 +41,16 @@ def flat_argmax(v: torch.Tensor, dim: int = 1) -> torch.Tensor:
 
 def _voxel_to_world(vox_xyz: torch.Tensor, spec: DecodeSpec) -> torch.Tensor:
     """(..., 3) continuous voxel coords (x, y, z) -> world meters
-    (center_head.py:308-310: ``x = vx * osf_x * sx + xmin``)."""
+    (center_head.py:308-310: ``x = vx * osf_x * sx + xmin``).  Scale and
+    offset are Python floats, which a float32 operation rounds to float32
+    as a float32 tensor of them would be: nothing is copied from the host,
+    so the eval step can be captured in a CUDA graph."""
     xmin, ymin, zmin = spec.pc_range_min_xyz
     sx, sy, sz = spec.voxel_size_xyz
     fz, fy, fx = spec.out_size_factor_zyx
-    scale = torch.tensor([sx * fx, sy * fy, sz * fz], dtype=torch.float32,
-                         device=vox_xyz.device)
-    offset = torch.tensor([xmin, ymin, zmin], dtype=torch.float32,
-                          device=vox_xyz.device)
-    return vox_xyz * scale + offset
+    return torch.stack([vox_xyz[..., 0] * (sx * fx) + xmin,
+                        vox_xyz[..., 1] * (sy * fy) + ymin,
+                        vox_xyz[..., 2] * (sz * fz) + zmin], dim=-1)
 
 
 def _ind_to_vox_xyz(ind: torch.Tensor, Y: int, X: int) -> torch.Tensor:

@@ -42,6 +42,7 @@ from ..core.decode import (TTA_FLIPS, decode_pose_multi, decode_pose_preds,
 from ..core.targets import PoseTargetSpec, assign_pose_targets
 from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
+from ..ops import conv_k3, quant
 from ..ops.preprocess import fused_preprocess_batch
 from ..utils import trace
 
@@ -231,6 +232,31 @@ def make_train_step(model, head, spec: PoseTargetSpec, optimizer,
     return train_step
 
 
+def _capture_graph(fn: Callable, device: torch.device, reset: Optional[Callable] = None):
+    """Run ``fn()`` once on a side stream (its warm-up: lazy initialisation,
+    K3's launch plan, cuDNN's algorithms), call ``reset()`` where given, then
+    capture ``fn()`` in a CUDA graph on ``device``.  The capture is
+    ``thread_local``: another thread may go on using the card meanwhile.
+    Returns the graph, what the captured call returned (buffers that every
+    replay rewrites) and what the kernels' wrappers (``ops.launch_counts``)
+    and the collectives (``parallel.collective_counts``) counted while it
+    was captured; a replay passes neither."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    cur.wait_stream(side)
+    if reset is not None:
+        reset()
+    warm, warm_coll = ops.launch_counts(), parallel.collective_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn()
+    return (graph, out, {k: v - warm[k] for k, v in ops.launch_counts().items()},
+            {k: v - warm_coll[k] for k, v in parallel.collective_counts().items()})
+
+
 class EpochStep:
     """``epoch_fn(state, data, idx) -> (state, metrics)``: one epoch over a
     device-cached dataset with nothing read back and, on the card, no Python
@@ -249,8 +275,9 @@ class EpochStep:
     tensors that keep their place.  On a CUDA device the step is captured
     once in a CUDA graph (after one eager warm-up step on a side stream,
     which is undone: everything ``TrainState.tensors`` names is restored),
-    and an epoch is ``n_steps`` replays; ``replays`` counts them.  A capture
-    that fails raises.  A replay launches the hand kernels without passing
+    and an epoch is ``n_steps`` replays; ``replays`` counts them.  After
+    them the state's version counters move, as an eager epoch's would.  A
+    capture that fails raises.  A replay launches the hand kernels without passing
     their wrappers, so ``ops.launch_counts`` sees the warm-up step and the
     capture and no replay: ``launches_per_step`` holds what the wrappers
     counted while the step was captured, and a replay's own launches show
@@ -317,22 +344,14 @@ class EpochStep:
         one step."""
         state = self._state
         saved = [t.clone() for t in state.tensors()]
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._one_step()
-        cur.wait_stream(side)
-        for t, s in zip(state.tensors(), saved):
-            t.copy_(s)
-        self.counter.zero_()
-        warm, warm_coll = ops.launch_counts(), parallel.collective_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._one_step()
-        self.launches_per_step = {k: v - warm[k] for k, v in ops.launch_counts().items()}
-        self.collectives_per_step = {k: v - warm_coll[k]
-                                     for k, v in parallel.collective_counts().items()}
+
+        def undo():
+            for t, s in zip(state.tensors(), saved):
+                t.copy_(s)
+            self.counter.zero_()
+
+        self.graph, _, self.launches_per_step, self.collectives_per_step = _capture_graph(
+            self._one_step, self.counter.device, undo)
 
     def __call__(self, state: TrainState, data: Dict[str, torch.Tensor], idx):
         idx = torch.as_tensor(idx).to(torch.int64).reshape(-1, self.rows_per_step)
@@ -351,6 +370,10 @@ class EpochStep:
             for _ in range(self._n):
                 self.graph.replay()
             self.replays += self._n
+            # a replay changes the state in place behind autograd's back:
+            # move its version counters as an eager step would, so that what
+            # keys on them (the convs' prepared weights, ``EvalGraphs``) sees it
+            torch.autograd.graph.increment_version(state.tensors())
         else:
             for _ in range(self._n):
                 self._one_step()
@@ -364,6 +387,119 @@ def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tup
     """A whole epoch of device-cached batches as one call (the JAX package's
     ``lax.scan`` over ``train_step``): see ``EpochStep``."""
     return EpochStep(train_step, batch_size, shapes, orig_dtypes, shard)
+
+
+class EvalGraphs:
+    """``graphs(batch)``: what the eval step ``step(batch)`` returns, from a
+    CUDA graph replayed per input signature once the step has been seen at
+    it (``make_eval_step`` wraps the steps of a dense radar input in one).
+
+    The signature is the key, shape, strides, dtype and device of the one
+    tensor the step reads ('rdr_raw' where the batch carries it and the
+    model reads 'rdr_tensor', else ``input_key``).  The first call at a
+    signature runs the step eagerly: its warm-up, which picks K3's launch
+    plan and cuDNN's algorithms and keeps the convs' prepared weights.  The
+    second copies the input into a static buffer, runs the step on it once
+    on a side stream, captures it in a CUDA graph and replays that; every
+    later call copies its input into the buffer and replays.  The answers
+    are cloned out of the graph's buffers, so a caller may keep them.  The
+    capture is ``thread_local``: ``device_prefetch``'s worker pins and
+    copies the next batch on another stream meanwhile.
+
+    Eager, never captured or replayed: an input not on a CUDA device; a
+    quant context (``ops.quant.current()``: calibration reads activations,
+    int8 runs other kernels); an active ``TorchDispatchMode`` (it has to see
+    each operation, ``utils.flops``).  Grad is never on in the step (it runs
+    under ``torch.inference_mode``).  A capture records, for every
+    parameter of the model's modules, its address and version counter (the
+    convs keep weights prepared from it), every buffer's address (the graph
+    reads buffers where they lie) and every submodule; a call that finds a
+    parameter, buffer or submodule replaced, moved or taken away, or a
+    parameter changed in place (``load_state_dict``, an optimizer step, a
+    fused training epoch), drops every graph, and each signature starts
+    again with an eager call.
+
+    Counters: ``captures``, ``replays`` and ``eager`` calls;
+    ``launches_per_replay``, what the kernels' wrappers counted while the
+    step was captured (a replay passes no wrapper, so ``ops.launch_counts``
+    misses it; a model's forward launches alike at every signature).  Span
+    ``eval.replay`` covers the copy-in and the replay; the step's own spans
+    fire only while it runs eagerly or is captured.
+    """
+
+    def __init__(self, step: Callable, model, input_key: str):
+        self.step, self.model, self.input_key = step, model, input_key
+        self.captures = self.replays = self.eager = 0
+        self.launches_per_replay: Dict[str, int] = {}
+        self._seen: set = set()
+        self._graphs: Dict[tuple, tuple] = {}   # signature -> (graph, input, outputs)
+        # (module._parameters, name), (module._buffers, name) and
+        # (module._modules, name) of each slot a capture read
+        self._params: list = []
+        self._buffers: list = []
+        self._children: list = []
+        self._held: list = []       # what they held at the capture: no address reused
+        self._state: Optional[tuple] = ()
+
+    def counts(self) -> Dict[str, Any]:
+        return dict(captures=self.captures, replays=self.replays, eager=self.eager,
+                    launches_per_replay=dict(self.launches_per_replay))
+
+    def _model_state(self) -> Optional[tuple]:
+        """What the captures read of the model; None where a slot is gone."""
+        try:
+            return ([(p.data_ptr(), p._version) for p in [d[n] for d, n in self._params]],
+                    [b.data_ptr() for b in [d[n] for d, n in self._buffers]],
+                    [id(d[n]) for d, n in self._children])
+        except (KeyError, AttributeError):
+            return None
+
+    def _capture(self, key: str, x: torch.Tensor):
+        xs = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+        xs.copy_(x)
+        graph, outs, self.launches_per_replay, _ = _capture_graph(
+            lambda: self.step({key: xs}), x.device)
+        mods = list(self.model.modules())
+        self._params, self._buffers, self._children = (
+            [(getattr(m, a), n) for m in mods for n, t in getattr(m, a).items() if t is not None]
+            for a in ("_parameters", "_buffers", "_modules"))
+        self._held = [d[n] for d, n in self._params + self._buffers + self._children]
+        self._state = self._model_state()
+        self._graphs[self._signature(key, x)] = (graph, xs, outs)
+        self.captures += 1
+        return graph, outs
+
+    @staticmethod
+    def _signature(key: str, x: torch.Tensor) -> tuple:
+        return key, tuple(x.shape), x.stride(), x.dtype, x.device
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        key = ("rdr_raw" if self.input_key == "rdr_tensor" and "rdr_raw" in batch
+               else self.input_key)
+        x = batch[key]
+        if (x.device.type != "cuda" or quant.current() is not None
+                or conv_k3.dispatch_mode_active()):
+            self.eager += 1
+            return self.step(batch)
+        if self._graphs and self._model_state() != self._state:
+            self._graphs.clear()
+            self._seen.clear()
+        sig = self._signature(key, x)
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self.eager += 1
+            return self.step(batch)
+        with torch.inference_mode():
+            if sig in self._graphs:
+                graph, xs, outs = self._graphs[sig]
+                with trace.span("eval.replay"):
+                    xs.copy_(x)
+                    graph.replay()
+                self.replays += 1
+            else:
+                graph, outs = self._capture(key, x)
+                graph.replay()
+            return [tuple(t.clone() for t in task) for task in outs]
 
 
 # the double-flip TTA's voxel sets: (key prefix, (flip x, flip y))
@@ -390,6 +526,11 @@ def make_eval_step(model, decode_spec, input_key: Optional[str] = "rdr_tensor",
     pipeline's ``{yflip,xflip,double_flip}_*`` sets), each set's dense
     outputs unflipped, the heatmap probabilities and the regressions
     averaged, the mean probability taken back to a logit, one decode.
+
+    The step of a dense radar input (``input_key`` not None) is an
+    ``EvalGraphs``: on the card it replays a CUDA graph of itself from the
+    second call at an input shape on.  The LiDAR steps, whose voxel sets
+    change shape with every batch, run eagerly.
     """
     if tta_double_flip and input_key is None:
         @torch.inference_mode()
@@ -433,4 +574,4 @@ def make_eval_step(model, decode_spec, input_key: Optional[str] = "rdr_tensor",
         with trace.span("eval.decode"):
             return model.pose_head.predict(preds, decode_spec)
 
-    return eval_step
+    return eval_step if input_key is None else EvalGraphs(eval_step, model, input_key)

@@ -80,8 +80,9 @@ def main(argv=None) -> dict:
                                       resolve_device, serving_variant)
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import BatchLoader
-    from rtpose_tpu_torch.engine import (load_checkpoint, make_eval_step, model_input_of,
-                                         resolve_checkpoint, run_eval, save_predictions)
+    from rtpose_tpu_torch.engine import (EvalGraphs, load_checkpoint, make_eval_step,
+                                         model_input_of, resolve_checkpoint, run_eval,
+                                         save_predictions)
     from rtpose_tpu_torch.engine.hooks import start_trace, stop_trace
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -157,9 +158,12 @@ def main(argv=None) -> dict:
             logger.info(f"profiler trace written to {path}")
     if sec_per_frame is not None:
         print(f"\n Total time per frame: {sec_per_frame}")
+    # the eval step's CUDA graph counters (its replays pass no kernel wrapper)
+    graphs = eval_step.counts() if isinstance(eval_step, EvalGraphs) else None
     if parallel.process_index() != 0:
         sys.stdout.flush()
-        return dict(results=None, sec_per_frame=sec_per_frame, detections=detections)
+        return dict(results=None, sec_per_frame=sec_per_frame, detections=detections,
+                    eval_graphs=graphs)
 
     os.makedirs(work_dir, exist_ok=True)
     # an artifact's outputs are named after the artifact file
@@ -175,7 +179,7 @@ def main(argv=None) -> dict:
         json.dump(dict(sorted(result_dict["seq_results"].items())), f, indent=2)
     sys.stdout.flush()
     return dict(results=result_dict["results"], sec_per_frame=sec_per_frame,
-                detections=detections)
+                detections=detections, eval_graphs=graphs)
 
 
 if __name__ == "__main__":

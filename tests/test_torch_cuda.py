@@ -16,6 +16,7 @@ labels equal.
 """
 
 import os
+import time
 
 import pytest
 import torch
@@ -203,6 +204,51 @@ def test_float8_cache_rows_gather_on_the_card(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
 
 
+# a small bf16 model whose backbone runs the K3 kernel (32-channel stride-1
+# 3x3x3 convs), on raw f16 cubes of 32 Doppler channels over SMALL_GRID
+SMALL_GRID = (8, 16, 32)
+SMALL_MODEL = dict(
+    type="RadarPoseNet", reader=dict(type="RadarFeatureNet"),
+    backbone=dict(type="HRNet3D", backbone_cfg="hr_tiny_feat32_zyx_l4_in32",
+                  final_conv_in=192, final_conv_out=128, final_fuse="conat_conv",
+                  ds_factor=1, dtype="bfloat16"),
+    pose_head=dict(type="CenterHead", tasks=[dict(num_class=1, class_names=["Pelvis"])],
+                   in_channels=128, share_conv_channel=64, common_heads={"reg": (45, 2)},
+                   weight=0.5, code_weights=[1.0] * 45, dtype="bfloat16"),
+    neck=None)
+
+
+def _small_cache(dev, n):
+    """``n`` seeded cache rows for the small model (raw f16 cubes, one pose
+    each) and their shapes."""
+    g = torch.Generator().manual_seed(0)
+    Z, Y, X = SMALL_GRID
+    raw = (torch.rand((n, 32, Z, Y, X), generator=g) * 12).half()
+    poses = (torch.rand((n, 1, 15, 3), generator=g) * 0.6 + 0.2) \
+        * torch.tensor([X * 0.25, Y * 0.5, Z * 0.25]) + torch.tensor([0.0, -4.0, -1.0])
+    data = {"rdr_raw": raw.reshape(n, -1).to(dev), "poses": poses.reshape(n, -1).to(dev),
+            "num_poses": torch.ones((n, 1), dtype=torch.int32, device=dev)}
+    shapes = {"rdr_raw": (32, Z, Y, X), "poses": (1, 15, 3), "num_poses": ()}
+    return data, shapes
+
+
+def _small_train_step(model, lr):
+    """The small model's sparse train step at a constant ``lr`` and its state."""
+    from rtpose_tpu_torch.core.targets import PoseTargetSpec
+    from rtpose_tpu_torch.engine import create_train_state, make_train_step
+    from rtpose_tpu_torch.solver import AdamOneCycle
+
+    dev = next(model.parameters()).device
+    spec = PoseTargetSpec(grid_zyx=SMALL_GRID, pc_range_min_xyz=(0.0, -4.0, -1.0),
+                          voxel_size_xyz=(0.25, 0.5, 0.25), max_poses=1, min_radius=2,
+                          mode="one_hm", num_classes=1)
+    opt = AdamOneCycle(list(model.parameters()), lambda s: torch.full((), lr, device=dev),
+                       None, weight_decay=0.0)
+    step = make_train_step(model, model.pose_head, spec, opt, sparse_reg=True,
+                           preprocess=(0.0, 10.0))
+    return step, create_train_state(model, opt)
+
+
 def test_captured_step_replayed_twice_equals_two_eager_steps(dev):
     """``make_epoch_step`` on the card: one step captured in a CUDA graph and
     replayed for both steps of an epoch, against two eager train steps on the
@@ -223,41 +269,17 @@ def test_captured_step_replayed_twice_equals_two_eager_steps(dev):
     counts are the wrappers' own: a fused epoch passes them in its warm-up step
     and in the capture and in no replay, so they read two steps' worth after
     the first epoch and the same after the second."""
-    from rtpose_tpu_torch.core.targets import PoseTargetSpec
-    from rtpose_tpu_torch.engine import create_train_state, make_epoch_step, make_train_step
+    from rtpose_tpu_torch.engine import make_epoch_step
     from rtpose_tpu_torch.models import build_detector, init_weights
-    from rtpose_tpu_torch.solver import AdamOneCycle
 
-    grid, lr, bs, n = (8, 16, 32), 1e-3, 2, 4
-    cfg = dict(
-        type="RadarPoseNet", reader=dict(type="RadarFeatureNet"),
-        backbone=dict(type="HRNet3D", backbone_cfg="hr_tiny_feat32_zyx_l4_in32",
-                      final_conv_in=192, final_conv_out=128, final_fuse="conat_conv",
-                      ds_factor=1, dtype="bfloat16"),
-        pose_head=dict(type="CenterHead", tasks=[dict(num_class=1, class_names=["Pelvis"])],
-                       in_channels=128, share_conv_channel=64, common_heads={"reg": (45, 2)},
-                       weight=0.5, code_weights=[1.0] * 45, dtype="bfloat16"),
-        neck=None)
-    spec = PoseTargetSpec(grid_zyx=grid, pc_range_min_xyz=(0.0, -4.0, -1.0),
-                          voxel_size_xyz=(0.25, 0.5, 0.25), max_poses=1, min_radius=2,
-                          mode="one_hm", num_classes=1)
-    g = torch.Generator().manual_seed(0)
-    Z, Y, X = grid
-    raw = (torch.rand((n, 32, Z, Y, X), generator=g) * 12).half()
-    poses = (torch.rand((n, 1, 15, 3), generator=g) * 0.6 + 0.2) \
-        * torch.tensor([X * 0.25, Y * 0.5, Z * 0.25]) + torch.tensor([0.0, -4.0, -1.0])
-    data = {"rdr_raw": raw.reshape(n, -1).to(dev), "poses": poses.reshape(n, -1).to(dev),
-            "num_poses": torch.ones((n, 1), dtype=torch.int32, device=dev)}
-    shapes = {"rdr_raw": (32, Z, Y, X), "poses": (1, 15, 3), "num_poses": ()}
+    lr, bs, n = 1e-3, 2, 4
+    data, shapes = _small_cache(dev, n)
     idx = torch.tensor([2, 0, 3, 1]).numpy()
 
     def fresh():
-        model = init_weights(build_detector(cfg), torch.Generator().manual_seed(1)).to(dev)
-        opt = AdamOneCycle(list(model.parameters()), lambda s: torch.full((), lr, device=dev),
-                           None, weight_decay=0.0)
-        step = make_train_step(model, model.pose_head, spec, opt, sparse_reg=True,
-                               preprocess=(0.0, 10.0))
-        return model, step, create_train_state(model, opt)
+        model = init_weights(build_detector(SMALL_MODEL),
+                             torch.Generator().manual_seed(1)).to(dev)
+        return (model, *_small_train_step(model, lr))
 
     def flat(model):
         return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
@@ -305,6 +327,229 @@ def test_captured_step_replayed_twice_equals_two_eager_steps(dev):
     state_g, ms = epoch_fn(state_g, data, idx)
     assert epoch_fn.replays == 4 and int(state_g.step) == 4 and torch.isfinite(ms["loss"]).all()
     assert ops.launch_counts() == warm_and_capture
+
+
+# ------------------------------------------------------- eval CUDA graphs
+
+SMALL_DECODE = dict(grid_zyx=SMALL_GRID, pc_range_min_xyz=(0.0, -4.0, -1.0),
+                    voxel_size_xyz=(0.25, 0.5, 0.25))
+NORM = (0.0, 10.0)
+
+
+def _small_eval(dev, sparse=True, multi_poses=0):
+    """The small model on the card with seeded weights, its eval step on raw
+    cubes, and a maker of seeded (B, 32, Z, Y, X) f16 raw batches."""
+    from rtpose_tpu_torch.core.decode import DecodeSpec
+    from rtpose_tpu_torch.engine import make_eval_step
+    from rtpose_tpu_torch.models import build_detector, init_weights
+
+    model = init_weights(build_detector(SMALL_MODEL), torch.Generator().manual_seed(1))
+    model = model.to(dev).eval()
+    step = make_eval_step(model, DecodeSpec(**SMALL_DECODE), sparse=sparse, preprocess=NORM,
+                          multi_poses=multi_poses)
+
+    def raw(B, seed):
+        g = torch.Generator().manual_seed(seed)
+        return (torch.rand((B, 32, *SMALL_GRID), generator=g) * 12).half().to(dev)
+
+    return model, step, raw
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for g_task, w_task in zip(got, want):
+        assert len(g_task) == len(w_task)
+        for g, w in zip(g_task, w_task):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,path", [(1, "sparse"), (2, "sparse"), (2, "dense"), (2, "multi")])
+def test_eval_graph_replay_equals_the_eager_step(dev, B, path):
+    """The eval step replayed from its CUDA graph gives, bit for bit, the
+    eager step's answer on the same batch (the same kernels on the same
+    inputs): the first call eager, the second captured and replayed, later
+    calls replays on new batches.  The sparse path at B=1 and B=2, the
+    dense and the multi-person decode at B=2."""
+    _, step, raw = _small_eval(dev, sparse=path == "sparse",
+                               multi_poses=2 if path == "multi" else 0)
+    batches = [{"rdr_raw": raw(B, seed)} for seed in range(4)]
+    want = [step.step(b) for b in batches]
+    got = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    assert (step.eager, step.captures, step.replays) == (1, 1, 2)
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+def test_eval_graph_answers_stay_the_callers(dev):
+    """A later call (replay) leaves the tensors an earlier call returned as
+    they were: the answers are clones, not the graph's buffers."""
+    _, step, raw = _small_eval(dev)
+    step({"rdr_raw": raw(1, 0)})
+    first = step({"rdr_raw": raw(1, 1)})                  # the capture
+    kept = [[t.clone() for t in task] for task in first]
+    second = step({"rdr_raw": raw(1, 2)})                 # a replay
+    torch.cuda.synchronize()
+    assert step.replays == 1
+    _equal(first, kept)
+    assert not torch.equal(first[0][0], second[0][0])
+
+
+def test_eval_graph_captures_again_after_the_weights_change(dev):
+    """Weights loaded in place (``load_state_dict``: the parameters' version
+    counters move) drop the graph: the next call runs eagerly on the new
+    weights, the one after captures again, and both give the eager step's
+    answer."""
+    from rtpose_tpu_torch.models import build_detector, init_weights
+
+    model, step, raw = _small_eval(dev)
+    b = {"rdr_raw": raw(1, 0)}
+    step(b)
+    before = step(b)
+    other = init_weights(build_detector(SMALL_MODEL), torch.Generator().manual_seed(2))
+    model.load_state_dict(other.state_dict())
+    after = step(b)
+    assert (step.eager, step.captures, step.replays) == (2, 1, 0)
+    _equal(after, step.step(b))
+    assert not torch.equal(after[0][0], before[0][0])
+    again = step(b)
+    assert (step.eager, step.captures, step.replays) == (2, 2, 0)
+    _equal(again, after)
+    step(b)
+    assert step.replays == 1
+
+
+def test_eval_graph_after_a_fused_epoch_reads_the_trained_weights(dev):
+    """A fused training epoch (``make_epoch_step``'s graph replays) changes
+    the weights in place and moves their version counters, so the eval
+    step captured before it neither replays nor reuses the convs' weights
+    prepared before it: its next answer is, bit for bit, that of a fresh
+    model loaded with the trained weights, and the call after captures
+    again."""
+    from rtpose_tpu_torch.core.decode import DecodeSpec
+    from rtpose_tpu_torch.engine import make_epoch_step, make_eval_step
+    from rtpose_tpu_torch.models import build_detector
+
+    model, step, raw = _small_eval(dev)
+    b = {"rdr_raw": raw(1, 0)}
+    step(b)
+    before = step(b)                                       # captured
+    data, shapes = _small_cache(dev, 4)
+    train_step, state = _small_train_step(model, 1e-3)
+    epoch_fn = make_epoch_step(train_step, 2, shapes, {})
+    epoch_fn(state, data, torch.tensor([2, 0, 3, 1]).numpy())
+    assert epoch_fn.replays == 2
+    model.eval()
+    fresh = build_detector(SMALL_MODEL).to(dev).eval()
+    fresh.load_state_dict(model.state_dict())
+    want = make_eval_step(fresh, DecodeSpec(**SMALL_DECODE), sparse=True,
+                          preprocess=NORM).step(b)
+    after = step(b)
+    assert (step.eager, step.captures, step.replays) == (2, 1, 0)
+    _equal(after, want)
+    assert not torch.equal(after[0][0], before[0][0])
+    _equal(step(b), want)
+    assert (step.eager, step.captures, step.replays) == (2, 2, 0)
+
+
+def test_eval_graph_captures_again_after_a_submodule_is_replaced(dev):
+    """A submodule swapped for another (new parameters, the old module kept
+    alive by the graph) drops the graph as a parameter changed in place
+    does: the next call runs eagerly on the new module."""
+    import copy
+
+    model, step, raw = _small_eval(dev)
+    b = {"rdr_raw": raw(1, 0)}
+    step(b)
+    before = step(b)
+    name, conv = next((n, m) for n, m in model.pose_head.named_modules()
+                      if type(m).__name__ == "TorchConv3d")
+    parent = model.pose_head.get_submodule(name.rpartition(".")[0])
+    swapped = copy.deepcopy(conv)
+    with torch.no_grad():
+        swapped.weight.mul_(0.5)
+    setattr(parent, name.rpartition(".")[2], swapped)
+    after = step(b)
+    assert (step.eager, step.captures, step.replays) == (2, 1, 0)
+    _equal(after, step.step(b))
+    assert not torch.equal(after[0][0], before[0][0])
+
+
+def test_eval_graph_stays_eager_under_a_quant_context(dev):
+    """Under ``quant.calibrate`` (``calibration_scales``) and under
+    ``quant.int8_mode`` the step runs eagerly: ``eager`` advances,
+    ``replays`` does not, and the int8 kernel's wrapper counts its
+    launches.  Out of the context the kept graph replays again.  B=4: the
+    int8 route's ``torch._int_mm`` needs more than 16 rows, and the coarsest
+    HRNet branch holds 8 voxels a frame here."""
+    from rtpose_tpu_torch.engine import bind_sites
+    from rtpose_tpu_torch.ops import quant
+
+    model, step, raw = _small_eval(dev)
+    bind_sites(model)
+    b = {"rdr_raw": raw(4, 0)}
+    step(b)
+    step(b)
+    assert (step.eager, step.captures, step.replays) == (1, 1, 0)
+    scales = quant.calibration_scales(step, [b, {"rdr_raw": raw(4, 1)}])
+    assert (step.eager, step.replays) == (3, 0) and scales
+    ops.reset_launch_counts()
+    with quant.int8_mode(scales, exclude=quant.DEFAULT_EXCLUDE):
+        q = step(b)
+    torch.cuda.synchronize()
+    assert (step.eager, step.captures, step.replays) == (4, 1, 0)
+    assert ops.launch_counts()["conv3d_k3_int8"] > 0
+    assert torch.isfinite(q[0][0]).all()
+    step(b)
+    assert (step.eager, step.captures, step.replays) == (4, 1, 1)
+
+
+def test_run_eval_captures_while_the_prefetch_worker_copies(dev):
+    """``run_eval`` over eight B=1 frames: the capture (second batch) runs
+    while ``device_prefetch``'s worker pins and copies the next batches on
+    its stream, and the detections equal an eager run's."""
+    import numpy as np
+
+    from rtpose_tpu_torch.core.decode import DecodeSpec
+    from rtpose_tpu_torch.engine import run_eval
+
+    _, step, _ = _small_eval(dev)
+    g = torch.Generator().manual_seed(3)
+    frames = (torch.rand((8, 1, 32, *SMALL_GRID), generator=g) * 12).half().numpy()
+
+    class Loader:
+        def __len__(self):
+            return len(frames)
+
+        def __iter__(self):
+            for i, f in enumerate(frames):
+                yield {"rdr_raw": f, "meta": [dict(seq="0", frame=str(i), rdr_frame=str(i))],
+                       "valid": np.int32(1)}
+
+    spec = DecodeSpec(**SMALL_DECODE)
+    got, _ = run_eval(step, Loader(), spec, device=dev)
+    want, _ = run_eval(step.step, Loader(), spec, device=dev)
+    assert (step.eager, step.captures, step.replays) == (1, 1, len(frames) - 2)
+    assert sorted(got) == sorted(want) and len(got) == len(frames)
+    for k in want:
+        assert got[k] == want[k]
+
+
+def test_voxel_to_world_on_the_card_equals_the_tensor_formula(dev):
+    """On the card too, the Python-float scale and offset give the float32
+    values of the float32 tensor formula, bit for bit."""
+    from rtpose_tpu_torch.core.decode import DecodeSpec, _voxel_to_world
+
+    s = DecodeSpec(grid_zyx=(16, 64, 160), pc_range_min_xyz=(0.7703125, -1.25625, -1.0875),
+                   voxel_size_xyz=(0.009375, 0.0392578125, 0.18125),
+                   out_size_factor_zyx=(2, 1, 3))
+    (fz, fy, fx), (sx, sy, sz) = s.out_size_factor_zyx, s.voxel_size_xyz
+    scale = torch.tensor([sx * fx, sy * fy, sz * fz], dtype=torch.float32, device=dev)
+    offset = torch.tensor(s.pc_range_min_xyz, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    vox = torch.rand((64, 15, 3), generator=g, device=dev) * 220 - 20
+    assert torch.equal(_voxel_to_world(vox, s), vox * scale + offset)
 
 
 # ------------------------------------------------------------------ int8 K3
@@ -681,3 +926,40 @@ def test_span_encloses_its_kernel_on_the_profilers_clock(dev):
               f"ends {(t1 - k1) / 1e3:.1f} us after it")
         assert t0 <= k0 + 50_000 and k1 <= t1 + 50_000
 
+
+def test_profiler_sees_each_replays_kernels(dev):
+    """``torch.profiler`` over three replays records ``3 x
+    launches_per_replay`` launches of the K3 and the preprocess kernel, by
+    name (what the benchmark's roofline readers count), and the wrappers
+    count none of them.  A trace taken after an earlier one in the process
+    can lose its first device operations (``benchmark/harness/trace.py``),
+    so spin kernels go first and the test needs more than half of them
+    kept; it runs last in this file, after the span test's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, step, raw = _small_eval(dev)
+    b = {"rdr_raw": raw(1, 0)}
+    ops.reset_launch_counts()
+    step(b)
+    step(b)
+    per = step.launches_per_replay
+    assert per["conv3d_k3"] > 0 and per["preprocess"] == 1
+    assert ops.launch_counts() == {k: 3 * v for k, v in per.items()}   # eager, warm-up, capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        for _ in range(3):
+            step(b)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("spin_kernel" in n for n in names) > 32
+    assert step.replays == 3
+    assert sum("conv3d_k3_kernel" in n and "int8" not in n for n in names) \
+        == 3 * per["conv3d_k3"]
+    assert sum("preprocess_kernel" in n for n in names) == 3 * per["preprocess"]
+    assert ops.launch_counts() == {k: 3 * v for k, v in per.items()}

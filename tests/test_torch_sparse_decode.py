@@ -133,6 +133,43 @@ def test_decode_sparse_matches_jax():
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
+@pytest.mark.parametrize("spec", [
+    SPEC,
+    dict(grid_zyx=(16, 64, 160), pc_range_min_xyz=(0.7703125, -1.25625, -1.0875),
+         voxel_size_xyz=(0.009375, 0.0392578125, 0.18125)),
+    dict(grid_zyx=GRID, pc_range_min_xyz=(0.1, -0.3, -1.7), voxel_size_xyz=(0.3, 0.7, 0.11),
+         out_size_factor_zyx=(2, 1, 3))])
+def test_voxel_to_world_equals_the_float32_tensor_formula(spec):
+    """Python-float scale and offset give, bit for bit, the float32 values
+    of ``vox * tensor(scale, float32) + tensor(offset, float32)``."""
+    s = tdec.DecodeSpec(**spec)
+    (fz, fy, fx), (sx, sy, sz) = s.out_size_factor_zyx, s.voxel_size_xyz
+    scale = torch.tensor([sx * fx, sy * fy, sz * fz], dtype=torch.float32)
+    offset = torch.tensor(s.pc_range_min_xyz, dtype=torch.float32)
+    vox = torch.from_numpy(np.random.default_rng(8).uniform(
+        -20.0, 200.0, size=(64, 15, 3)).astype(np.float32))
+    got = tdec._voxel_to_world(vox, s)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, vox * scale + offset)
+
+
+def test_dense_radar_eval_step_runs_eagerly_on_the_cpu(model):
+    """``make_eval_step`` of a dense radar input is an ``EvalGraphs``; on
+    the CPU every call is eager (no capture, no replay) and gives the plain
+    step's answer; the voxel-input step stays a plain function."""
+    from rtpose_tpu_torch.engine import EvalGraphs, make_eval_step
+
+    spec = tdec.DecodeSpec(**SPEC)
+    step = make_eval_step(model, spec, sparse=True)
+    assert isinstance(step, EvalGraphs)
+    assert not isinstance(make_eval_step(model, spec, input_key=None), EvalGraphs)
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, *GRID, 32)).astype(np.float32))
+    first, second = step({"rdr_tensor": x}), step({"rdr_tensor": x})
+    assert step.counts() == dict(captures=0, replays=0, eager=2, launches_per_replay={})
+    for a, b, c in zip(first[0], second[0], step.step({"rdr_tensor": x})[0]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.parametrize("threshold,one_hm", [(0.0, True), (0.5, True), (0.5, False)])
 def test_post_process_matches_jax(threshold, one_hm):
     """Threshold rules, including a score that underflowed to exactly 0.0
