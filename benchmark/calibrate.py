@@ -18,7 +18,6 @@ of ``run.py`` never compute these.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import sys
@@ -40,7 +39,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     from benchmark.harness.cells import resolve
     from benchmark.harness.dist import Ranks
-    from benchmark.run import LOOPS
     from rtpose_tpu_torch.api import resolve_device
     cell = resolve(args.workload)
     if args.dtype:
@@ -49,10 +47,10 @@ def main(argv=None) -> int:
     if cell.chips != 1:
         raise SystemExit("calibrate.py runs one-card cells")
     device = resolve_device("cuda")
-    loop = importlib.import_module(LOOPS[cell.traffic["kind"]])
     for seed in args.seeds:
         t = time.time()
-        res = loop.run(cell, seed, args.seconds, False, device, Ranks(), extra=tuple(args.extra))
+        res = cell.loop.run(cell, seed, args.seconds, False, device, Ranks(),
+                            extra=tuple(args.extra))
         row = {"workload": cell.name, "seed": seed, "program": res["numbers"],
                **res["extra"], "units": res["units"], "seconds": time.time() - t}
         print(json.dumps(row), flush=True)

@@ -2,7 +2,7 @@
 
 * ``model_flops``: operations of one call as the program's algorithm
   needs them, counted by ``torch.utils.flop_counter.FlopCounterMode`` over
-  the benchmark's own reference model on the ``meta`` device (two per
+  the configuration's reference model on the ``meta`` device (two per
   multiply-add over every conv's full window; the regression tower on the
   5^3 patches the sparse path evaluates).  ``predict``: the sparse
   predict; ``train``: the loss forward and the backward of a train step.
@@ -22,7 +22,7 @@ from typing import List, Tuple
 
 import torch
 
-from benchmark.reference import model as ref_model
+from benchmark.harness import cells
 
 BF16_PEAK = 989e12      # H100 SXM, dense bf16 FLOP/s (NVIDIA's data sheet)
 HBM_BW = 3.35e12        # H100 SXM HBM3 bytes/s
@@ -46,10 +46,10 @@ def grid(cfg: dict) -> Tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _flops(cfg_json: str, batch: int, kind: str) -> int:
+def _flops(cfg_json: str, batch: int, kind: str, bench_dir: str) -> int:
     from torch.utils.flop_counter import FlopCounterMode
     cfg = json.loads(cfg_json)
-    net = ref_model.build(cfg["model"], in_channels(cfg), device="meta")
+    net = cells.reference(cfg, bench_dir).build(cfg["model"], in_channels(cfg), device="meta")
     x = torch.zeros((batch, *grid(cfg), in_channels(cfg)), device="meta")
     with FlopCounterMode(display=False) as counter:
         if kind == "predict":
@@ -64,14 +64,16 @@ def _flops(cfg_json: str, batch: int, kind: str) -> int:
     return int(counter.get_total_flops())
 
 
-def model_flops(cfg: dict, batch: int, kind: str) -> int:
-    return _flops(json.dumps(cfg, sort_keys=True), batch, kind)
+def model_flops(cfg: dict, batch: int, kind: str, bench_dir: str = cells.BENCH_DIR) -> int:
+    return _flops(json.dumps(cfg, sort_keys=True), batch, kind, bench_dir)
 
 
-def k3_shapes(cfg: dict, batch: int) -> List[Tuple[int, int, int, int]]:
+def k3_shapes(cfg: dict, batch: int,
+              bench_dir: str = cells.BENCH_DIR) -> List[Tuple[int, int, int, int]]:
     """(B, Z, Y, X) of each K3-shaped conv of one forward (the trunk's
     3x3x3 stride-1 32 -> 32 convs), in call order."""
-    net = ref_model.build(cfg["model"], in_channels(cfg), device="meta")
+    ref = cells.reference(cfg, bench_dir)
+    net = ref.build(cfg["model"], in_channels(cfg), device="meta")
     shapes = []
 
     def hook(mod, args):
@@ -81,7 +83,7 @@ def k3_shapes(cfg: dict, batch: int) -> List[Tuple[int, int, int, int]]:
             shapes.append((b, z, y, x))
 
     for m in net.modules():
-        if isinstance(m, ref_model.Conv):
+        if isinstance(m, ref.Conv):
             m.register_forward_pre_hook(hook)
     with torch.no_grad():
         net.features(torch.zeros((batch, *grid(cfg), in_channels(cfg)), device="meta"))

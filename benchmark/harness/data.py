@@ -6,9 +6,11 @@ and frames on every run.  A traffic file (``benchmark/traffic/*.json``)
 sets the parameters: how many distinct frames, the pose geometry and the
 radar energy around the joints.
 
-* Weights (``make_weights``): every parameter the reference names, in the
-  port's names: He-normal conv kernels (fan-in), zero biases, unit
-  GroupNorm scales, the heatmap output bias at the config's init bias.
+* Weights (``make_weights``): every parameter the configuration's
+  reference names, in the port's names, each drawn as the reference's
+  ``INIT`` says for its kind (``reference/model.py``: He-normal conv
+  kernels (fan-in), zero biases, unit GroupNorm scales, the heatmap output
+  bias at the config's init bias).
 * Frames (``make_frames``): one person a frame; the pelvis at a random
   voxel inside the grid's margin, off the voxel edges by at least a tenth
   of a voxel (so no target voxel depends on rounding); the 15 joints a
@@ -27,8 +29,7 @@ from typing import Dict
 
 import torch
 
-from benchmark.harness import counts
-from benchmark.reference import model as ref_model
+from benchmark.harness import cells, counts
 
 # a standing person, meters from the pelvis (x forward, y left, z up)
 SKELETON = [
@@ -45,22 +46,39 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(seed) * 4 + stream) & MASK63)
 
 
-def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    specs = ref_model.param_specs(ref_model.build(cfg["model"], counts.in_channels(cfg),
-                                                  device="meta"))
-    init_bias = float(cfg["model"]["pose_head"].get("init_bias", -2.19))
-    g = generator(seed, 0, device)
-    convs = [(n, s) for n, s, k in specs if k == "conv"]
-    draw = torch.randn(sum(math.prod(s) for _, s in convs), generator=g, device=device)
+def _normal(specs, g, device) -> Dict[str, torch.Tensor]:
+    """(name, shape, std) drawn from one ``randn`` in order."""
+    if not specs:
+        return {}
+    draw = torch.randn(sum(math.prod(s) for _, s, _ in specs), generator=g, device=device)
     out, at = {}, 0
-    for n, s in convs:
+    for n, s, std in specs:
         size = math.prod(s)
-        out[n] = draw[at:at + size].view(s) * (2.0 / math.prod(s[1:])) ** 0.5
+        out[n] = draw[at:at + size].view(s) * std
         at += size
-    fill = {"conv_bias": 0.0, "norm_b": 0.0, "norm_w": 1.0, "hm_bias": init_bias}
-    for n, s, k in specs:
-        if k != "conv":
-            out[n] = torch.full(s, fill[k], device=device)
+    return out
+
+
+def make_weights(cfg: dict, seed: int, device,
+                 bench_dir: str = cells.BENCH_DIR) -> Dict[str, torch.Tensor]:
+    """Every parameter of the configuration's reference, drawn by its
+    ``INIT``: the He-normal kinds from one ``randn`` in spec order, then the
+    stated-std normal kinds from the same generator, then the fills."""
+    ref = cells.reference(cfg, bench_dir)
+    specs = ref.param_specs(ref.build(cfg["model"], counts.in_channels(cfg), device="meta"))
+    draws = {n: ref.INIT[k] for n, _, k in specs}
+    bad = {n: d for n, d in draws.items() if d[0] not in ("he_normal", "normal", "fill")}
+    if bad:
+        raise ValueError(f"reference {cfg['reference']!r}: unknown draws {bad}")
+    g = generator(seed, 0, device)
+    out = _normal([(n, s, (2.0 / math.prod(s[1:])) ** 0.5) for n, s, _ in specs
+                   if draws[n][0] == "he_normal"], g, device)
+    out.update(_normal([(n, s, float(draws[n][1])) for n, s, _ in specs
+                        if draws[n][0] == "normal"], g, device))
+    for n, s, _ in specs:
+        if draws[n][0] == "fill":
+            value = draws[n][1](cfg["model"]) if callable(draws[n][1]) else draws[n][1]
+            out[n] = torch.full(s, float(value), device=device)
     return out
 
 

@@ -31,7 +31,6 @@ import torch
 from benchmark.harness import check, counts, data
 from benchmark.harness.trace import Schedule
 from benchmark.reference import evaluate as ref_eval
-from benchmark.reference import model as ref_model
 from benchmark.reference import train as ref_train
 
 
@@ -103,7 +102,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, ranks=None,
 
     cfg, tr = cell.cfg, cell.traffic
     B = int(tr["batch_per_rank"])
-    weights = data.make_weights(cfg, seed, device)
+    weights = data.make_weights(cfg, seed, device, cell.bench_dir)
     frames_dev = data.make_frames(cfg, tr, seed, device)
     host = data.to_host(frames_dev)
     del frames_dev
@@ -194,10 +193,10 @@ def int8_answers(model, step, host, sample, answers, device, B):
 
 
 def reference_check(cell, seed, device, host, sample, answers, preprocess, control=None):
-    cfg = cell.cfg
+    cfg, ref = cell.cfg, cell.reference
     spec = ref_train.Spec(cfg)
-    net = ref_model.load(ref_model.build(cfg["model"], counts.in_channels(cfg), device),
-                         data.make_weights(cfg, seed, device))
+    net = ref.load(ref.build(cfg["model"], counts.in_channels(cfg), device),
+                   data.make_weights(cfg, seed, device, cell.bench_dir))
     cand = {}
     judged, judged_ctl = [], []
     for pos in sample:

@@ -41,7 +41,8 @@ def mfu_pct(trace, kind: str, unprofiled: bool = False) -> Optional[float]:
     """The whole step's (or frame's) operations over ``seconds_per_unit``,
     as a share of one card's bf16 peak (each rank traces its own card, so
     the share is per card)."""
-    flops = counts.model_flops(trace.extra["cell"].cfg, batch(trace), kind)
+    cell = trace.extra["cell"]
+    flops = counts.model_flops(cell.cfg, batch(trace), kind, cell.bench_dir)
     s = seconds_per_unit(trace, unprofiled)
     if not flops or not s:
         return None
@@ -53,7 +54,8 @@ def k3_roofline_pct(trace, launches_per_shape: int) -> Optional[float]:
     The launches' shapes are the forward's K3 convs (``counts.k3_shapes``),
     ``launches_per_shape`` times a unit (2 in training: the forward and the
     grad-input); a stretch whose launch count differs reads nothing."""
-    shapes = counts.k3_shapes(trace.extra["cell"].cfg, batch(trace))
+    cell = trace.extra["cell"]
+    shapes = counts.k3_shapes(cell.cfg, batch(trace), cell.bench_dir)
     ops = [o for o in trace.ops_named("conv3d_k3_kernel") if "int8" not in o[0]]
     if not ops or len(ops) != trace.units * launches_per_shape * len(shapes):
         return None

@@ -14,9 +14,9 @@ step boundary and closes at the first step boundary after ``--seconds``
 (the loader raises ``WindowClosed``), both edges behind a
 ``torch.cuda.synchronize()``.
 
-After the window the program is freed and the plain float32 reference
-(``benchmark/reference``) follows the same three batches from the same
-weights on the card, one sample at a time.
+After the window the program is freed and the configuration's plain
+float32 reference (``benchmark/reference``) follows the same three
+batches from the same weights on the card, one sample at a time.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import torch
 from benchmark.harness import check, counts, data
 from benchmark.harness.dist import Ranks
 from benchmark.harness.trace import Schedule
-from benchmark.reference import model as ref_model
 from benchmark.reference import train as ref_train
 
 
@@ -138,7 +137,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, ranks: Ranks,
     cfg, tr = cell.cfg, cell.traffic
     B = int(tr["batch_per_rank"])
     warm, n_check = int(tr["warm_steps"]), int(tr["check_steps"])
-    weights = data.make_weights(cfg, seed, device)
+    weights = data.make_weights(cfg, seed, device, cell.bench_dir)
     frames_dev = data.make_frames(cfg, tr, seed, device)
     host = data.to_host(frames_dev)
     del frames_dev
@@ -244,7 +243,7 @@ def reference_check(cell, seed, device, host, rows, total_steps, preprocess, pro
     """The reference over the checked batches; the program's numbers, and
     those of each ``extra`` stand-in ('control': the reference in float8;
     'half_batch': the reference leaving half of each batch out)."""
-    cfg = cell.cfg
+    cfg, ref = cell.cfg, cell.reference
     spec = ref_train.Spec(cfg)
     key = "raw" if "raw" in host else "tensor"
     batches = [{"cube": host[key][r].to(device), "poses": host["poses"][r].to(device)}
@@ -258,15 +257,15 @@ def reference_check(cell, seed, device, host, rows, total_steps, preprocess, pro
             return ref_pre(raw, n0, n1)
 
     def follow(fp8=False, drop_half=False):
-        net = ref_model.load(ref_model.build(cfg["model"], counts.in_channels(cfg), device),
-                             data.make_weights(cfg, seed, device))
+        net = ref.load(ref.build(cfg["model"], counts.in_channels(cfg), device),
+                       data.make_weights(cfg, seed, device, cell.bench_dir))
         init = {n: p.detach().clone() for n, p in net.named_parameters()}
-        ref_model.Conv.fp8 = fp8
+        ref.Conv.fp8 = fp8
         try:
             losses, grad, after = ref_train.train_steps(net, batches, spec, total_steps, pre,
                                                         drop_half=drop_half)
         finally:
-            ref_model.Conv.fp8 = False
+            ref.Conv.fp8 = False
         names = [n for n, _ in net.named_parameters()]
         return (losses, dict(zip(names, [g.cpu() for g in grad])),
                 {n: (a - init[n]).cpu() for n, a in zip(names, after)}, init)

@@ -292,10 +292,24 @@ class PoseNet(nn.Module):
         return hm, self.reg_at(f, flat, sparse), flat
 
 
+def _init_bias(model_cfg: dict) -> float:
+    return float(model_cfg["pose_head"].get("init_bias", -2.19))
+
+
+# each parameter kind's draw (the benchmark's ``make_weights``)
+INIT = {
+    "conv": ("he_normal",),
+    "conv_bias": ("fill", 0.0),
+    "norm_w": ("fill", 1.0),
+    "norm_b": ("fill", 0.0),
+    "hm_bias": ("fill", _init_bias),
+}
+
+
 def param_specs(model: nn.Module) -> List[Tuple[str, tuple, str]]:
     """(name, shape, kind) of every parameter, in module order; kind is
     'conv' (He-normal), 'conv_bias' (zero), 'norm_w' (one), 'norm_b'
-    (zero) or 'hm_bias' (the heatmap output's init bias)."""
+    (zero) or 'hm_bias' (the heatmap output's init bias): ``INIT``."""
     out = []
     hm_out = model.pose_head.tasks[0].hm[2]
     for mname, m in model.named_modules():

@@ -11,11 +11,12 @@ end-to-end metrics with ``--trace 0``, its per-layer metrics with
 (also the last lines of standard error).
 
 Everything is found by name (``harness/cells.py``): the configuration in
-``configs/``, the traffic mix in ``traffic/`` (whose ``kind`` picks the
-loop, ``harness/train_loop.py`` or ``harness/eval_stream.py``), the
-correctness limits in ``limits/`` and each per-layer metric's reader in
-``metrics/``.  A cell on several cards starts one process a card with
-``torch.distributed.run --standalone``; rank 0 reports.
+``configs/`` and the reference model it names in ``reference/``, the
+traffic mix in ``traffic/`` (whose ``kind`` names its loop,
+``harness/<kind>.py``), the correctness limits in ``limits/`` and each
+per-layer metric's reader in ``metrics/``.  A cell on several cards
+starts one process a card with ``torch.distributed.run --standalone``;
+rank 0 reports.
 
 The run exits non-zero and prints no result without a CUDA card (or with
 fewer than the cell asks for), and if a JAX module (``jax``, ``jaxlib``,
@@ -42,8 +43,6 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtpose_tpu")
-LOOPS = {"train_loop": "benchmark.harness.train_loop",
-           "eval_stream": "benchmark.harness.eval_stream"}
 
 
 def parse_args(argv=None):
@@ -114,10 +113,8 @@ def per_layer(cell, res: dict) -> dict:
 def drive(cell, args, device, ranks) -> dict:
     """One run on this process's card: the loop's result plus the line's
     parts (rank 0's are reported)."""
-    import importlib
     import torch
-    loop = importlib.import_module(LOOPS[cell.traffic["kind"]])
-    res = loop.run(cell, args.seed, args.seconds, bool(args.trace), device, ranks)
+    res = cell.loop.run(cell, args.seed, args.seconds, bool(args.trace), device, ranks)
     t_start = args.t_start if args.t_start is not None else T_START
     setup_s = res["setup_end"] - time.perf_counter() + time.time() - t_start
     line = {"attempted": res.get("frames", res["units"]), "failed": res["failed"]}

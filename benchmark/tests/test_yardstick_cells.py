@@ -1,8 +1,11 @@
 """BENCHMARK.json against its contract, and resolution of every cell by
-name (configuration, traffic mix, limits, each per-layer metric's reader),
-also of a cell added as files in a copy."""
+name (configuration, the reference model it names, traffic mix and its
+loop, limits, each per-layer metric's reader), also of a cell, and of a
+configuration with a reference model of its own, added as files in a
+copy."""
 
 import json
+import math
 import os
 import pathlib
 import re
@@ -10,7 +13,7 @@ import shutil
 
 import pytest
 
-from benchmark.harness.cells import benchmark_json, resolve
+from benchmark.harness.cells import benchmark_json, from_files, resolve
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -101,3 +104,106 @@ def test_a_cell_added_as_files_runs_without_editing_any(tmp_path):
     res = train_loop.run(shrink(cell), 3, 0.3, False, torch.device("cpu"), Ranks())
     assert res["units"] >= 1 and set(res["numbers"]) >= {"loss_gap"}
     assert all(p.read_bytes() == b for p, b in ((pathlib.Path(k), v) for k, v in before.items()))
+
+
+def _copy(tmp_path):
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    return root, before
+
+
+# a reference of its own: model.py's net, with the regression output's bias
+# a draw of its own (a normal of stated std, after the He-normal kernels)
+OWN_REFERENCE = '''"""model.py's net; the regression output's bias drawn from N(0, 0.5^2)."""
+
+from benchmark.reference import model
+from benchmark.reference.model import Conv, build, load  # noqa: F401
+
+INIT = dict(model.INIT, reg_bias=("normal", 0.5))
+REG_BIAS = "pose_head.tasks.0.reg.2.bias"
+
+
+def param_specs(net):
+    return [(n, s, "reg_bias" if n == REG_BIAS else k) for n, s, k in model.param_specs(net)]
+'''
+
+
+def test_a_configuration_with_its_own_reference_runs_as_files(tmp_path):
+    """A new configuration naming a new reference module (which reuses
+    model.py's parts and states a draw of its own), its limits file and
+    BENCHMARK.json entries, no file edited: the cell resolves to that
+    module, its weights follow the module's draws, and a run of it (at a
+    tiny grid on the CPU) checks out within its limits."""
+    import torch
+    from benchmark.harness import check, data, eval_stream
+    from benchmark.tests.test_yardstick_isolation import imports, reference_import_ok
+    from benchmark.tests.tiny import shrink
+    root, before = _copy(tmp_path)
+    ref_file = root / "benchmark/reference/own_reg_bias.py"
+    ref_file.write_text(OWN_REFERENCE)
+    assert all(reference_import_ok(n) for n in imports(str(ref_file)))
+    cfg = json.loads((root / "benchmark/configs/hrradarpose_doppler.json").read_text())
+    cfg["reference"] = "own_reg_bias"
+    (root / "benchmark/configs/hrradarpose_own.json").write_text(json.dumps(cfg))
+    name = "hrradarpose_own.eval_b1"
+    (root / "benchmark/limits" / f"{name}.json").write_text(
+        json.dumps({"limits": {"kpt_gap": 5.5}}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "hrradarpose_own", "source": "a test",
+                             "file": "benchmark/configs/hrradarpose_own.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": name, "config": "hrradarpose_own",
+                               "traffic": "eval_b1", "chips": 1, "why": "a test"})
+    for group in ("end_to_end", "per_layer"):
+        for m in bench[group]:
+            if "hrradarpose_doppler.eval_b1" in m.get("workloads", ()):
+                m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = resolve(name, str(root))
+    assert cell.config == "hrradarpose_own" and cell.limits == {"kpt_gap": 5.5}
+    assert os.path.samefile(cell.reference.__file__, ref_file)
+    assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "frame_ms_p50"}
+    cell = shrink(cell)
+    seed = 2 ** 33 + 5
+    own = data.make_weights(cell.cfg, seed, "cpu", cell.bench_dir)
+    plain = data.make_weights(dict(cell.cfg, reference="model"), seed, "cpu")
+    ref = cell.reference
+    he = [(n, s) for n, s, k in ref.param_specs(ref.build(cell.cfg["model"], 32, "meta"))
+          if ref.INIT[k][0] == "he_normal"]
+    g = data.generator(seed, 0, "cpu")
+    torch.randn(sum(torch.Size(s).numel() for _, s in he), generator=g)
+    assert torch.equal(own[ref.REG_BIAS], torch.randn(45, generator=g) * 0.5)
+    assert not torch.equal(plain[ref.REG_BIAS], own[ref.REG_BIAS])
+    assert all(torch.equal(own[n], plain[n]) for n in plain if n != ref.REG_BIAS)
+
+    res = eval_stream.run(cell, seed, 0.3, False, torch.device("cpu"))
+    assert res["units"] >= 1 and res["failed"] == 0
+    assert all(math.isfinite(v) for v in res["numbers"].values())
+    assert check.verdict(res["numbers"], cell.limits)
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("reference", [None, "no_such_reference"])
+def test_a_configuration_without_a_reference_does_not_resolve(tmp_path, reference):
+    root, _ = _copy(tmp_path)
+    cfg = json.loads((root / "benchmark/configs/hrradarpose_doppler.json").read_text())
+    del cfg["reference"]
+    if reference is not None:
+        cfg["reference"] = reference
+    (root / "benchmark/configs/hrradarpose_bare.json").write_text(json.dumps(cfg))
+    with pytest.raises(LookupError, match="'hrradarpose_bare'"):
+        from_files("hrradarpose_bare.eval_b1", "benchmark/configs/hrradarpose_bare.json",
+                   "eval_b1", root=str(root))
+
+
+def test_a_traffic_kind_without_a_loop_does_not_resolve(tmp_path):
+    root, _ = _copy(tmp_path)
+    mix = json.loads((root / "benchmark/traffic/eval_b1.json").read_text())
+    mix["kind"] = "open_loop"
+    (root / "benchmark/traffic/open_b1.json").write_text(json.dumps(mix))
+    with pytest.raises(LookupError, match="'open_loop'"):
+        from_files("hrradarpose_doppler.open_b1", "benchmark/configs/hrradarpose_doppler.json",
+                   "open_b1", root=str(root))

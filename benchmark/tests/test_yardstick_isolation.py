@@ -35,11 +35,20 @@ def test_no_source_imports_jax():
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def reference_import_ok(name: str) -> bool:
+    """What a reference module may import: plain PyTorch and the standard
+    modules below, and other references' parts (``benchmark.reference.*``)."""
+    return (name.split(".")[0] in {"torch", "math", "collections", "typing", "__future__"}
+            or name == "benchmark.reference" or name.startswith("benchmark.reference."))
+
+
 def test_the_reference_imports_nothing_of_the_program():
     for path in sources("reference"):
         for name in imports(path):
-            assert name.split(".")[0] in {"torch", "math", "collections", "typing",
-                                          "__future__"}, (path, name)
+            assert reference_import_ok(name), (path, name)
+    for name in ("rtpose_tpu_torch.models", "rtpose_tpu", "jax", "benchmark.harness.data",
+                 "benchmark", "numpy"):
+        assert not reference_import_ok(name), name
 
 
 def test_a_run_leaves_no_jax_module_loaded():

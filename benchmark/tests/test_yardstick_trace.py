@@ -6,6 +6,7 @@ import types
 import pytest
 
 from benchmark.harness import readers
+from benchmark.harness.cells import BENCH_DIR
 from benchmark.harness.kernel_classes import classify
 from benchmark.harness.trace import SENTINELS, Trace, TraceLost, guard, union_us
 
@@ -36,7 +37,8 @@ def test_union():
 
 
 def _trace(ops, units=2, start=0.0, end=100.0, cfg=None, traffic=None):
-    cell = types.SimpleNamespace(cfg=cfg or {}, traffic=traffic or {"batch_per_rank": 8})
+    cell = types.SimpleNamespace(cfg=cfg or {}, traffic=traffic or {"batch_per_rank": 8},
+                                 bench_dir=BENCH_DIR)
     return Trace(ops=ops, start_us=start, end_us=end, units=units, host_ops=[("aten::x", 0, 100)],
                  extra={"cell": cell})
 
