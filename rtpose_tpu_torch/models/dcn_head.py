@@ -17,6 +17,9 @@ deformable conv casts its weights to the features' dtype
 (``ops.deform_conv``); the LayerNorm is flax's (epsilon 1e-6, statistics in
 float32 as E[x^2] - E[x]^2 clipped at 0).
 
+Span ``dcn.offset`` (``utils.trace``) covers each branch's offset conv; the
+deformable conv's own spans and counters are ``ops.deform_conv``'s.
+
 Parameter names are the flax ones (``feature_adapt_cls.conv_offset``,
 ``.conv_adaption``, ``cls_conv0``, ``cls_norm``, ``cls_out``,
 ``task_head.reg.{0,2}``), which ``engine.convert.state_dict_from_jax`` maps
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_conv2d
+from ..utils import trace
 from .center_head import SepHead
 
 
@@ -94,7 +98,9 @@ class FeatureAdaption(nn.Module):
                                           deformable_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.conv_adaption(x, self.conv_offset(x)))
+        with trace.span("dcn.offset"):
+            offset = self.conv_offset(x)
+        return F.relu(self.conv_adaption(x, offset))
 
 
 class DCNSepHead(nn.Module):

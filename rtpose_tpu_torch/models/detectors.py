@@ -59,7 +59,12 @@ class RadarPoseNet(nn.Module):
         return x if self.neck is None else self.neck(x)
 
     def forward(self, rdr_tensor: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-        return self.pose_head(self.extract_feat(rdr_tensor))
+        """Dense forward: every head at every voxel; spans ``predict.backbone``
+        and ``predict.head``."""
+        with trace.span("predict.backbone"):
+            feat = self.extract_feat(rdr_tensor)
+        with trace.span("predict.head"):
+            return self.pose_head(feat)
 
     def forward_sparse_train(self, rdr_tensor: torch.Tensor, ind: torch.Tensor):
         """Training forward with the reg tower evaluated only at the target

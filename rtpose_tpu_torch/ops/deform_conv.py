@@ -31,6 +31,14 @@ of at most ``CHUNK_ELEMS`` im2col elements; with autograd on, each chunk
 runs under ``torch.utils.checkpoint``, so the backward recomputes a chunk's
 gathers instead of keeping them.  Images are independent, so chunking
 changes no value.
+
+Spans (``utils.trace``, off by default): ``dcn.sample`` around each chunk's
+bilinear gather and weighting, ``dcn.contract`` around its matrix product
+(again in the backward's recomputation).  ``counts()`` holds what the calls
+since ``reset()`` asked for: ``calls``, ``chunks``, ``samples`` (bilinear
+samples, n * Ho * Wo * K * dg) and ``column_elems`` (im2col elements,
+n * Ho * Wo * K * C); the Python call adds to them, so a captured call
+counts once and the replays of its CUDA graph do not.
 """
 
 from __future__ import annotations
@@ -41,7 +49,21 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..utils import trace
+
 CHUNK_ELEMS = 1 << 28     # im2col elements per chunk (512 MB in bf16)
+
+_COUNTS = dict(calls=0, chunks=0, samples=0, column_elems=0)
+
+
+def counts() -> dict:
+    """What the calls since the last ``reset`` asked for (see the module's doc)."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
 def _grid(n_out: int, n_k: int, stride: int, padding: int, dilation: int, dtype, device):
@@ -51,8 +73,9 @@ def _grid(n_out: int, n_k: int, stride: int, padding: int, dilation: int, dtype,
     return (base[:, None] + torch.arange(n_k, device=device)[None, :] * dilation).to(dtype)
 
 
-def _deform_out(x, offset, mask, weight, bias, Kh, Kw, stride, padding, dilation, dg):
-    """One chunk: (n, H, W, C) -> (n, Ho, Wo, Cout) in x.dtype."""
+def _columns(x, offset, mask, Kh, Kw, stride, padding, dilation, dg):
+    """One chunk's deformed im2col tensor: (n, H, W, C) -> (n * Ho * Wo, K * C)
+    in x.dtype."""
     n, H, W, C = x.shape
     _, Ho, Wo, _ = offset.shape
     K, Cg = Kh * Kw, C // dg
@@ -89,17 +112,24 @@ def _deform_out(x, offset, mask, weight, bias, Kh, Kw, stride, padding, dilation
     cols = cols * valid[..., None].to(x.dtype)
     if mask is not None:
         cols = cols * mask.reshape(n, Ho, Wo, dg, K).transpose(3, 4)[..., None]
-    cols = cols.reshape(n * Ho * Wo, K * C)
-    wmat = weight.reshape(K * C, -1)
-    if bias is None and cols.dtype == wmat.dtype == x.dtype:
-        # one GEMM in x.dtype: float32 accumulation, one rounding
-        out = cols @ wmat
-    else:
-        acc = torch.promote_types(x.dtype, torch.float32)
-        out = cols.to(acc) @ wmat.to(acc)
-        if bias is not None:
-            out = out + bias
-    return out.to(x.dtype).reshape(n, Ho, Wo, -1)
+    return cols.reshape(n * Ho * Wo, K * C)
+
+
+def _deform_out(x, offset, mask, weight, bias, Kh, Kw, stride, padding, dilation, dg):
+    """One chunk: (n, H, W, C) -> (n, Ho, Wo, Cout) in x.dtype."""
+    with trace.span("dcn.sample"):
+        cols = _columns(x, offset, mask, Kh, Kw, stride, padding, dilation, dg)
+    with trace.span("dcn.contract"):
+        wmat = weight.reshape(cols.shape[1], -1)
+        if bias is None and cols.dtype == wmat.dtype == x.dtype:
+            # one GEMM in x.dtype: float32 accumulation, one rounding
+            out = cols @ wmat
+        else:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            out = cols.to(acc) @ wmat.to(acc)
+            if bias is not None:
+                out = out + bias
+        return out.to(x.dtype).reshape(*offset.shape[:3], -1)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
@@ -122,6 +152,11 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"offset shape {tuple(offset.shape)} for output ({B}, {Ho}, {Wo})")
     step = max(1, CHUNK_ELEMS // max(1, Ho * Wo * Kh * Kw * C))
     args = (Kh, Kw, stride, padding, dilation, deformable_groups)
+    positions = B * Ho * Wo * Kh * Kw
+    _COUNTS["calls"] += 1
+    _COUNTS["chunks"] += -(-B // step)
+    _COUNTS["samples"] += positions * deformable_groups
+    _COUNTS["column_elems"] += positions * C
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, offset, weight, bias, mask))
     outs = []

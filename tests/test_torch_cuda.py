@@ -536,6 +536,47 @@ def test_run_eval_captures_while_the_prefetch_worker_copies(dev):
         assert got[k] == want[k]
 
 
+def test_eval_graph_of_the_deformable_head_replays_without_counting(dev):
+    """The dense step of the deformable head (offset convs drawn non-zero):
+    eager, captured, then replayed, each replay the eager step's answer bit
+    for bit; the deformable conv's counters move on the eager call, the
+    capture's warm-up and the capture, and not on a replay."""
+    import copy
+
+    from rtpose_tpu_torch.core.decode import DecodeSpec
+    from rtpose_tpu_torch.engine import make_eval_step
+    from rtpose_tpu_torch.models import build_detector, init_weights
+    from rtpose_tpu_torch.models.dcn_head import FeatureAdaption
+    from rtpose_tpu_torch.ops import deform_conv
+
+    cfg = copy.deepcopy(SMALL_MODEL)
+    cfg["pose_head"].update(share_conv_channel=128, dcn_head=True)
+    g = torch.Generator().manual_seed(1)
+    model = init_weights(build_detector(cfg), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FeatureAdaption):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=g) * 0.05)
+    model = model.to(dev).eval()
+    step = make_eval_step(model, DecodeSpec(**SMALL_DECODE), sparse=False, preprocess=NORM)
+    raw = torch.Generator().manual_seed(5)
+    batches = [{"rdr_raw": (torch.rand((2, 32, *SMALL_GRID), generator=raw) * 12).half().to(dev)}
+               for _ in range(4)]
+    want = [step.step(b) for b in batches]
+    deform_conv.reset()
+    got = [step(b) for b in batches[:2]]
+    counted = deform_conv.counts()
+    got += [step(b) for b in batches[2:]]
+    torch.cuda.synchronize()
+    assert (step.eager, step.captures, step.replays) == (1, 1, 2)
+    Z, Y, X = SMALL_GRID
+    assert counted["calls"] == 2 * 3 and counted["samples"] == 3 * 2 * 2 * Z * Y * X * 9 * 4
+    assert deform_conv.counts() == counted
+    for a, b in zip(got, want):
+        _equal(a, b)
+
+
 def test_voxel_to_world_on_the_card_equals_the_tensor_formula(dev):
     """On the card too, the Python-float scale and offset give the float32
     values of the float32 tensor formula, bit for bit."""

@@ -1,9 +1,11 @@
 """The port's host spans (``rtpose_tpu_torch.utils.trace``): off they cost a
 flag check and record nothing; on they record each span with its thread
-on the profiler's clock, in a bounded buffer; the eval loop and the
-trainer record their layers' spans; ``start_trace`` turns them on as
-named ranges."""
+on the profiler's clock, in a bounded buffer; the eval loop, the dense
+forward with its deformable head and the trainer record their layers'
+spans; ``start_trace`` turns them on as named ranges.  The deformable
+conv's counters (``ops.deform_conv.counts``) follow its shapes."""
 
+import copy
 import json
 import threading
 
@@ -19,6 +21,7 @@ from rtpose_tpu_torch.engine import (Trainer, create_train_state, make_eval_step
                                      make_train_step, run_eval)
 from rtpose_tpu_torch.engine.hooks import start_trace, stop_trace
 from rtpose_tpu_torch.models import build_detector, init_weights
+from rtpose_tpu_torch.ops import deform_conv
 from rtpose_tpu_torch.solver import AdamOneCycle, make_one_cycle_fns
 from rtpose_tpu_torch.utils import trace
 
@@ -144,6 +147,59 @@ def test_run_eval_records_the_eval_layers_once_a_batch():
     trace.disable()
     run_eval(step, _Frames(2), spec, device=CPU)
     assert trace.take() == []
+
+
+DCN_MODEL_CFG = copy.deepcopy(MODEL_CFG)
+DCN_MODEL_CFG["pose_head"]["dcn_head"] = True
+DCN_SPANS = ["dcn.offset"] + ["dcn.sample", "dcn.contract"] * 2     # a branch, two chunks
+
+
+def _dcn_model(monkeypatch):
+    """The deformable head on the small trunk, its deformable convs cut into
+    two chunks of four images (B * Z = 8 at B=1)."""
+    Z, Y, X = GRID
+    monkeypatch.setattr(deform_conv, "CHUNK_ELEMS", 4 * Y * X * 9 * 64)
+    model = build_detector(DCN_MODEL_CFG)
+    return init_weights(model, torch.Generator().manual_seed(0)).eval()
+
+
+def test_the_dense_step_records_the_deformable_head(monkeypatch):
+    """The dense eval step: the backbone, then the head with each branch's
+    offset conv and each chunk's sampling and contraction, in that order,
+    inside the eval loop's spans; with spans off, nothing."""
+    model = _dcn_model(monkeypatch)
+    spec = DecodeSpec(**SPEC_KW)
+    step = make_eval_step(model, spec, sparse=False)
+    trace.enable()
+    run_eval(step, _Frames(2), spec, device=CPU)
+    names = _names(trace.take())
+    frame = (["eval.next_batch", "eval.step", "predict.backbone", "predict.head"] + DCN_SPANS * 2
+             + ["eval.decode", "eval.sync", "eval.post"])
+    assert names == frame * 2 + ["eval.next_batch"]
+    trace.disable()
+    with torch.no_grad():
+        model(torch.zeros((1, *GRID, 1)))
+    run_eval(step, _Frames(1), spec, device=CPU)
+    assert trace.take() == []
+
+
+def test_the_deformable_conv_counts_what_its_shapes_ask_for(monkeypatch):
+    """One forward's two deformable convs over B * Z images of Y x X, 64
+    channels, 4 groups, 9 taps, two chunks each; spans on or off alike."""
+    model = _dcn_model(monkeypatch)
+    B = 2
+    Z, Y, X = GRID
+    positions = B * Z * Y * X * 9
+    want = dict(calls=2, chunks=2 * 4, samples=2 * positions * 4, column_elems=2 * positions * 64)
+    for on in (False, True):
+        if on:
+            trace.enable()
+        deform_conv.reset()
+        assert deform_conv.counts() == dict(calls=0, chunks=0, samples=0, column_elems=0)
+        with torch.no_grad():
+            model(torch.zeros((B, *GRID, 1)))
+        assert deform_conv.counts() == want
+    assert _names(trace.take()).count("dcn.sample") == 2 * 4
 
 
 def test_start_and_stop_trace_turn_the_named_ranges_on_and_off(tmp_path):
