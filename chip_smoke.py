@@ -15,6 +15,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and grad-input); device times beside the plain version and bf16
      F.conv3d at the four shapes (kernel / library, TFLOP/s, share of the
      bound);
+  4b. the deformable-conv kernel (``ops.deform_conv``) at the deformable
+     head's cell shape, (128, 64, 160, 128) -> 128 with 4 groups: against its
+     arithmetic in stock ops, no coarser than the plain bf16 route against
+     float32, two launches bit-identical; device time beside the plain
+     route's and the bound;
   5. the flagship eval path end to end: a synthetic ROI-only dataset of
      300 test frames at the flagship geometry, seeded random weights saved
      as .pth, and ``rtpose_tpu_torch.tools.test`` on configs/cruw_pose/
@@ -76,9 +81,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      one frame card vs CPU and the multi-peak decode of the same float32
      outputs on both, a bf16 tools.export artifact against the live model;
  21. ``_dcn`` (the deformable head) on the training root: one epoch at B=8
-     (the same counts), one more traced (the deformable gather and its
-     scatter-add backward by kernel), peak device memory, tools.test
-     (traced), one frame card vs CPU;
+     (the same counts; training takes the deformable conv's plain route),
+     one more traced (the deformable gather and its scatter-add backward by
+     kernel), peak device memory, tools.test (traced; the deformable-conv
+     kernel twice a forward), one frame card vs CPU;
  22. ``_phase`` (complex 64-channel cubes, B=1): one epoch, one more traced,
      tools.test (traced); no kernel launched (complex cubes opt out of the
      card preprocess, no conv has the K3 shape);
@@ -599,6 +605,74 @@ def int8_row(ms, plain_ms, stock_ms, bf16_ms, xq, **extra):
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gop=ops / 1e9, tops=ops / ms / 1e9, share_of_bound=bound / ms,
                 kernel_over_stock=ms / stock_ms, kernel_over_bf16_k3=ms / bf16_ms, **extra)
+
+
+# the cell hrradarpose_dcn.eval_b8's deformable convs: B * Z images, H, W, C
+# (-> C), deformable groups
+DEFORM_SHAPE = (128, 64, 160, 128)
+DEFORM_GROUPS = 4
+
+
+def phase_deform(dev):
+    """The deformable-conv kernel at the cell's shape, offsets drawn as the
+    head's offset conv gives them (1x1 weights N(0, 0.05^2)): against its
+    arithmetic in stock ops (``kernel_reference``, one bf16 ulp plus 2e-3 of
+    the output range), both and the plain bf16 route against float32 (the
+    kernel no coarser), two launches bit-identical; device times of the
+    kernel (``device_ms``) and of the plain route (CUDA events around eager
+    calls: a graph of ``CALLS`` would hold their ~6 GB of columns each)
+    beside the bound."""
+    import torch
+    from rtpose_tpu_torch.ops import deform_conv as dc
+
+    B, H, W, C = DEFORM_SHAPE
+    dg = DEFORM_GROUPS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(DEFORM_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    off = (x.float() @ (torch.randn(C, dg * 18, generator=gen, device=dev)
+                        * DCN_OFFSET_STD)).contiguous()
+    w = (torch.randn(3, 3, C, C, generator=gen, device=dev) / (9 * C) ** 0.5).to(torch.bfloat16)
+
+    def plain():
+        with torch.enable_grad():
+            return dc.deform_conv2d(x.detach().requires_grad_(), off, w,
+                                    deformable_groups=dg).detach()
+
+    with torch.inference_mode():
+        got = dc.deform_conv2d(x, off, w, deformable_groups=dg)
+        mirror = dc.kernel_reference(x, off, w, 1, dg)
+        err = check_close("deform kernel", got, mirror, CONV_RTOL,
+                          CONV_ATOL_FRAC * mirror.float().abs().max().item())
+        if not torch.equal(got, dc.deform_conv2d(x, off, w, deformable_groups=dg)):
+            fail("deform kernel: two launches on the same inputs differ")
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = dc.deform_conv2d(x.float(), off, w.float(), deformable_groups=dg)
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    slow = plain()
+    ek, ep = (got.float() - want).abs(), (slow.float() - want).abs()
+    errs = dict(kernel_max=ek.max().item(), kernel_mean=ek.mean().item(),
+                plain_max=ep.max().item(), plain_mean=ep.mean().item())
+    if errs["kernel_max"] > errs["plain_max"] or errs["kernel_mean"] > errs["plain_mean"]:
+        fail(f"deform kernel: coarser than the plain bf16 route against float32: {errs}")
+    del got, mirror, want, slow, ek, ep
+    with torch.inference_mode():
+        ms = device_ms(lambda: dc.launch(x, off, w, 1, dg))
+        wrap = wrapper_ms(lambda: dc.deform_conv2d(x, off, w, deformable_groups=dg), 20, 3)
+    plain_ms = wrapper_ms(plain, 3, 1)
+    positions = B * H * W
+    flops = 2 * positions * 9 * C * C
+    nbytes = x.numel() * 2 + off.numel() * 4 + positions * C * 2
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    print(f"[deform] ({B}, {H}, {W}, {C}) -> {C}, dg {dg}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {100 * bound / ms:.1f} % of bound {bound:.4f} ms), wrapper {wrap:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; max err vs kernel_reference {err:.3e}; vs float32 {errs}")
+    return dict(name="deform_conv2d", route="cuda", source="rtpose_tpu_torch/csrc/deform_conv.cu",
+                replaces=None, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
+                else "bytes", library_ms=None, wrapper_ms=wrap, gflop=flops / 1e9,
+                share_of_bound=bound / ms, vs_float32=errs, deterministic=True,
+                shape=f"({B}, {H}, {W}, {C}) bf16, dg {dg} -> {C}")
 
 
 def phase_conv_int8(dev):
@@ -1136,7 +1210,8 @@ def run_train(tag, argv, epochs, counted_steps=None):
         fail(f"{tag}: {int(sum(skipped))} train steps skipped")
     counted = steps if counted_steps is None else counted_steps
     want = {"preprocess": counted, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * counted,
-            "conv3d_k3_bwd": K3_PER_STEP * counted, "conv3d_k3_int8": 0}
+            "conv3d_k3_bwd": K3_PER_STEP * counted, "conv3d_k3_int8": 0,
+            "deform_conv2d": 0}
     if counts != want:
         fail(f"{tag}: training launch counts {counts}, expected {want}")
     print(f"[{tag}] losses {[round(v, 4) for v in losses]}")
@@ -1437,7 +1512,7 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
     if es.replays != steps:
         fail(f"fused: {es.replays} graph replays for {steps} steps")
     captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-                "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0}
+                "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0}
     if es.launches_per_step != captured:
         fail(f"fused: the wrappers counted {es.launches_per_step} during the capture, "
              f"expected {captured}")
@@ -1608,7 +1683,8 @@ def slice_config(tmp, tag, name, root):
 
 # each hand kernel's symbol in a device trace -> the wrappers that launch it
 KERNEL_SYMBOLS = {"preprocess_kernel": ("preprocess", "preprocess_single"),
-                  "conv3d_k3_kernel": ("conv3d_k3", "conv3d_k3_bwd")}
+                  "conv3d_k3_kernel": ("conv3d_k3", "conv3d_k3_bwd"),
+                  "deform_conv2d_fwd_kernel": ("deform_conv2d",)}
 
 
 def cuda_trace(fn):
@@ -1951,7 +2027,7 @@ def phase_dcn(tmp, train_root, dev):
          "--seed", "0", "--stop_epoch", "1"]), steps, "step")
     ckpt = os.path.join(work, "checkpoints", "epoch_1.pth")
     _, test = slice_test("dcn", cfg_path, ckpt, os.path.join(tmp, "dcn_eval"), 8,
-                         dict(preprocess=1, conv3d_k3=K3_PER_STEP), 1,
+                         dict(preprocess=1, conv3d_k3=K3_PER_STEP, deform_conv2d=2), 1,
                          extra=["--device_preprocess"])
     _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg, DCN_OFFSET_STD), dev)
     ds = build_dataset_from_cfg(cfg.data, "test", device_preprocess=True)
@@ -2498,13 +2574,13 @@ def phase_dp(tmp, cfg_path, refs=None):
         for r in ranks:
             r[tag]["params"] = params[0]
     per_step = {"preprocess": steps, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * steps,
-                "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0}
+                "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0, "deform_conv2d": 0}
     for r in ranks:
         dp_check_counts(f"dp train rank {r['rank']}", r["train"], steps, per_step,
                         {"all_reduce": DP_ALL_REDUCES_PER_STEP * steps,
                          "barrier": TRAIN_EPOCHS})
         captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-                    "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0}
+                    "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0}
         two = {k: 2 * v for k, v in captured.items()}    # the warm-up step and the capture
         # the warm-up step and the capture each issue the step's collectives
         dp_check_counts(f"dp fused rank {r['rank']}", r["fused"], steps, two,
@@ -2596,7 +2672,7 @@ def phase_dp(tmp, cfg_path, refs=None):
         fail("phase 25: a rank other than 0 evaluated")
     # each rank's share of the 8 frames is one padded batch of 8: one forward
     want = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-            "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0}
+            "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0}
     if any(r["test"]["launches"] != want for r in ranks):
         fail(f"phase 25: tools.test launch counts {[r['test']['launches'] for r in ranks]}, "
              f"expected {want} on each rank")
@@ -3166,7 +3242,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev),
-               phase_conv_int8(dev)]
+               phase_conv_int8(dev), phase_deform(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
@@ -3195,7 +3271,9 @@ def main() -> int:
         dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
                                        train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
-    k1, k2, k3, k3_bwd, k3_int8 = kernels
+    k1, k2, k3, k3_bwd, k3_int8, k_deform = kernels
+    # the deformable head's eval: its slice's tools.test (eager, capture, replays)
+    k_deform["launches"] = slices["dcn"]["test"]["launches"]["deform_conv2d"]
     # the serving path's own run: the int8 artifact through tools.test
     k3_int8["launches"] = serving["launches"]["int8"]["conv3d_k3_int8"]
     k1["launches"] = e2e["launches"]["preprocess"]
@@ -3215,7 +3293,7 @@ def main() -> int:
     k3_bwd["fused_trace_launches_with_fwd"] = ft["conv3d_k3_kernel"]
     # each slice path's own runs: the wrappers' counts, reset just before each
     names = {"preprocess": k1, "preprocess_single": k2, "conv3d_k3": k3,
-             "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8}
+             "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8, "deform_conv2d": k_deform}
     lidar = slices["lidar"]
     for name, k in names.items():
         k["path_launches"] = {}

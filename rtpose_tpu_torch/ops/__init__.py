@@ -2,7 +2,7 @@
 this package registers the kernels as ``torch.ops.rtpose`` custom ops
 (``ops/library.py``), which a loaded serving artifact needs."""
 
-from . import conv_k3, conv_k3_int8, library, preprocess
+from . import conv_k3, conv_k3_int8, deform_conv, library, preprocess
 
 
 def launch_counts() -> dict:
@@ -11,7 +11,7 @@ def launch_counts() -> dict:
     which pass no wrapper, are not in them."""
     return {"preprocess": preprocess.launches, "preprocess_single": preprocess.launches_single,
             "conv3d_k3": conv_k3.launches, "conv3d_k3_bwd": conv_k3.launches_bwd,
-            "conv3d_k3_int8": conv_k3_int8.launches}
+            "conv3d_k3_int8": conv_k3_int8.launches, "deform_conv2d": deform_conv.launches}
 
 
 def reset_launch_counts() -> None:
@@ -20,3 +20,4 @@ def reset_launch_counts() -> None:
     conv_k3.launches = 0
     conv_k3.launches_bwd = 0
     conv_k3_int8.launches = 0
+    deform_conv.launches = 0

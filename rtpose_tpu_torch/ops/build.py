@@ -35,6 +35,8 @@ KERNELS = {
                 [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "conv_k3_int8": ("conv_k3_int8.cu", "rtpose_conv3d_k3_int8",
                      [_P] * 5 + [_I] * 11 + [_P]),
+    "deform_conv": ("deform_conv.cu", "rtpose_deform_conv2d",
+                    [_P] * 4 + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()

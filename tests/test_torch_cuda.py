@@ -148,7 +148,8 @@ def test_conv_backward_matches_plain(dev, shape, with_bias):
     out.backward(go)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 1,
-                                   "conv3d_k3_bwd": 1, "conv3d_k3_int8": 0}
+                                   "conv3d_k3_bwd": 1, "conv3d_k3_int8": 0,
+                                   "deform_conv2d": 0}
     want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
     torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want_gx.float().abs().max().item())
@@ -539,8 +540,9 @@ def test_run_eval_captures_while_the_prefetch_worker_copies(dev):
 def test_eval_graph_of_the_deformable_head_replays_without_counting(dev):
     """The dense step of the deformable head (offset convs drawn non-zero):
     eager, captured, then replayed, each replay the eager step's answer bit
-    for bit; the deformable conv's counters move on the eager call, the
-    capture's warm-up and the capture, and not on a replay."""
+    for bit; the deformable conv's counters and its kernel's launches move on
+    the eager call, the capture's warm-up and the capture (each deformable
+    conv through the kernel), and not on a replay."""
     import copy
 
     from rtpose_tpu_torch.core.decode import DecodeSpec
@@ -565,14 +567,19 @@ def test_eval_graph_of_the_deformable_head_replays_without_counting(dev):
                for _ in range(4)]
     want = [step.step(b) for b in batches]
     deform_conv.reset()
+    ops.reset_launch_counts()
     got = [step(b) for b in batches[:2]]
-    counted = deform_conv.counts()
+    counted, launched = deform_conv.counts(), ops.launch_counts()["deform_conv2d"]
     got += [step(b) for b in batches[2:]]
     torch.cuda.synchronize()
     assert (step.eager, step.captures, step.replays) == (1, 1, 2)
     Z, Y, X = SMALL_GRID
     assert counted["calls"] == 2 * 3 and counted["samples"] == 3 * 2 * 2 * Z * Y * X * 9 * 4
+    # the eager call, the capture's warm-up and the capture took the kernel
+    assert counted["kernel_calls"] == counted["calls"] == launched
+    assert counted["chunks"] == 0
     assert deform_conv.counts() == counted
+    assert ops.launch_counts()["deform_conv2d"] == launched
     for a, b in zip(got, want):
         _equal(a, b)
 
@@ -779,6 +786,92 @@ def test_deform_conv_card_matches_cpu(dev, mask):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
 
 
+def _deform_inputs(dev, B, H, W, C, Cout, dg, offsets, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, H, W, C, generator=g, device=dev).to(torch.bfloat16)
+    if offsets == "conv":     # as the deformable head's 1x1 offset conv gives them
+        off = x.float() @ (torch.randn(C, dg * 18, generator=g, device=dev) * 0.05)
+    elif offsets == "edge":   # samples exactly on -1, H, W and half a pixel off them
+        shape = (B, H, W, dg * 18)
+        off = (torch.randint(-8, 9, shape, generator=g, device=dev)
+               + 0.5 * torch.randint(0, 2, shape, generator=g, device=dev)).float()
+    else:                     # uniform in +-offsets pixels (40: far outside the map)
+        off = (torch.rand(B, H, W, dg * 18, generator=g, device=dev) * 2 - 1) * offsets
+    w = (torch.randn(3, 3, C, Cout, generator=g, device=dev) / (9 * C) ** 0.5).to(torch.bfloat16)
+    return x, off, w
+
+
+def _plain_bf16(x, off, w, **kw):
+    """The plain route on bf16 inputs (grad on: the kernel's predicate refuses it)."""
+    from rtpose_tpu_torch.ops.deform_conv import deform_conv2d
+    with torch.enable_grad():
+        return deform_conv2d(x.detach().requires_grad_(), off, w, **kw).detach()
+
+
+@pytest.mark.parametrize("offsets", ["conv", 6.0, "edge", 40.0])
+@pytest.mark.parametrize("shape", [(4, 64, 160, 128, 128, 4), (3, 7, 11, 64, 128, 8),
+                                   (1, 5, 6, 256, 256, 8)])
+def test_deform_kernel_is_no_coarser_than_the_plain_route(dev, shape, offsets):
+    """The deformable-conv kernel at a slice of the cell's shape, at a small
+    odd one and at one with two steps a tap and two output-channel blocks,
+    against the same function in float32 (the plain route on
+    the bf16 inputs upcast, TF32 off): its max and mean absolute errors are
+    no larger than the plain bf16 route's; it matches its own arithmetic in
+    stock ops (``kernel_reference``) to one bf16 ulp plus 2e-3 of the output
+    range (float32 sums in other orders, each rounded once); two launches
+    are bit-equal."""
+    from rtpose_tpu_torch.ops import deform_conv as dc
+
+    B, H, W, C, Cout, dg = shape
+    x, off, w = _deform_inputs(dev, B, H, W, C, Cout, dg, offsets)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dc.reset()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = dc.deform_conv2d(x, off, w, deformable_groups=dg)
+        again = dc.deform_conv2d(x, off, w, deformable_groups=dg)
+        want = dc.deform_conv2d(x.float(), off, w.float(), deformable_groups=dg)
+        mirror = dc.kernel_reference(x, off, w, 1, dg)
+    plain = _plain_bf16(x, off, w, deformable_groups=dg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["deform_conv2d"] == 2
+    assert dc.counts()["kernel_calls"] == 2 and dc.counts()["calls"] == 4
+    assert torch.equal(got, again)
+    eg, ep = (got.float() - want).abs(), (plain.float() - want).abs()
+    assert eg.max() <= ep.max() and eg.mean() <= ep.mean()
+    torch.testing.assert_close(got.float(), mirror.float(), rtol=2.0 ** -7,
+                               atol=2e-3 * mirror.float().abs().max().item())
+
+
+@pytest.mark.parametrize("case", ["kernel", "grad", "float32", "mask", "bias"])
+def test_deform_conv_route_follows_the_inputs(dev, case):
+    """One predicate on the inputs picks the route: a no-grad bf16 call
+    without mask or bias takes the kernel; grad enabled (with an input that
+    requires it), float32, a mask or a bias take the plain route.  The
+    kernel's launches and ``kernel_calls`` show which ran."""
+    from rtpose_tpu_torch.ops import deform_conv as dc
+
+    x, off, w = _deform_inputs(dev, 2, 5, 9, 64, 128, 2, 3.0)
+    kw = dict(deformable_groups=2)
+    if case == "float32":
+        x, w = x.float(), w.float()
+    elif case == "mask":
+        kw["mask"] = torch.rand(2, 5, 9, 18, device=dev)
+    elif case == "bias":
+        kw["bias"] = torch.zeros(128, device=dev)
+    elif case == "grad":
+        x = x.requires_grad_()
+    dc.reset()
+    ops.reset_launch_counts()
+    with torch.set_grad_enabled(case == "grad"):
+        out = dc.deform_conv2d(x, off, w, **kw)
+    torch.cuda.synchronize()
+    fused = case == "kernel"
+    assert ops.launch_counts()["deform_conv2d"] == dc.counts()["kernel_calls"] == int(fused)
+    assert dc.counts()["chunks"] == int(not fused) and dc.counts()["calls"] == 1
+    assert out.requires_grad == (case == "grad") and out.shape == (2, 5, 9, 128)
+
+
 def test_multi_decode_card_matches_cpu(dev):
     """``decode_pose_multi`` on the card against the CPU: the same peaks in
     the same order (a plateau tie and zeros from underflowed sigmoids
@@ -873,7 +966,7 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
         torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 6,
-                      "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0}
+                      "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0}
     span = (want["hm"].max() - want["hm"].min()).item()
     torch.testing.assert_close(got["hm"].float().cpu(), want["hm"], rtol=0, atol=0.05 * span)
     reg_max = want["reg"].abs().max().item()
