@@ -438,6 +438,7 @@ def phase_conv(dev):
     ``F.conv3d`` at the four main-path shapes."""
     import torch
     import torch.nn.functional as F
+    from rtpose_tpu_torch.ops import build
     from rtpose_tpu_torch.ops import conv_k3 as ck
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -468,7 +469,7 @@ def phase_conv(dev):
                    device_ms(lambda: ck.conv3d_k3_reference(x, w)),
                    device_ms(lambda: F.conv3d(xc, wb, padding=1)), x,
                    wrapper_ms=wrapper_ms(lambda: ck.conv3d_k3(x, w)),
-                   plan=ck.plan(*shape, ck._sm_count(dev.index or 0))._asdict())
+                   plan=ck.plan(*shape, build.sm_count(dev))._asdict())
         rows[str(shape)] = r
         k3_print("conv", shape, r)
     main = rows[str(K3_SHAPES[0])]
@@ -683,6 +684,7 @@ def phase_conv_int8(dev):
     (int8 im2col + ``torch._int_mm``) and the bf16 K3 kernel at the four
     shapes, with the launch plan chosen at each."""
     import torch
+    from rtpose_tpu_torch.ops import build
     from rtpose_tpu_torch.ops import conv_k3 as ck
     from rtpose_tpu_torch.ops import conv_k3_int8 as ck8
     from rtpose_tpu_torch.ops import quant
@@ -725,7 +727,7 @@ def phase_conv_int8(dev):
                                                       None, torch.bfloat16)),
                      device_ms(lambda: ck.launch(xb, wr)), xq,
                      wrapper_ms=wrapper_ms(lambda: ck8.conv3d_k3_int8(xq, wq, scale)),
-                     plan=ck8.plan(*shape, ck8._sm_count(dev.index or 0))._asdict())
+                     plan=ck8.plan(*shape, build.sm_count(dev))._asdict())
         rows[str(shape)] = r
         print(f"[int8 conv] {shape}: {r['ms']:.4f} ms ({r['tops']:.1f} TOPS, "
               f"{100 * r['share_of_bound']:.1f} % of bound {r['bound_ms']:.4f} ms by "

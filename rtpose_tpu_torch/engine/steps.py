@@ -42,7 +42,7 @@ from ..core.decode import (TTA_FLIPS, decode_pose_multi, decode_pose_preds,
 from ..core.targets import PoseTargetSpec, assign_pose_targets
 from ..data.loader import gather_batch
 from ..models.losses import fast_focal_loss_logits, masked_l1
-from ..ops import conv_k3, quant
+from ..ops import build, quant
 from ..ops.preprocess import fused_preprocess_batch
 from ..utils import trace
 
@@ -478,7 +478,7 @@ class EvalGraphs:
                else self.input_key)
         x = batch[key]
         if (x.device.type != "cuda" or quant.current() is not None
-                or conv_k3.dispatch_mode_active()):
+                or build.dispatch_mode_active()):
             self.eager += 1
             return self.step(batch)
         if self._graphs and self._model_state() != self._state:

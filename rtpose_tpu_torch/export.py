@@ -155,9 +155,10 @@ def export_predict(asm, batch_size: int = 1, device: str = "cuda",
 
     A copy of ``asm.model`` is moved to the device and run once under
     ``no_grad`` on a zeros input, which prepares every conv's weights (cast
-    and laid out, or quantized), with the kernels behind their custom ops
-    (``TorchConv3d.use_ops``); ``TorchConv3d.freeze`` then keeps them as
-    buffers, and ``torch.export`` traces the copy under ``no_grad``.  The
+    and laid out, or quantized); ``TorchConv3d.freeze`` then keeps them as
+    buffers, and ``torch.export`` traces the copy under ``no_grad`` (its
+    trace is a dispatch mode, so the kernels' wrappers call their custom
+    ops, ``ops.build.dispatch_mode_active``).  The
     artifact's metadata (``.rtpose_meta``) records the device, the batch,
     the input, the int8 sites and ``final_dtype``."""
     from .api import resolve_device
@@ -176,7 +177,6 @@ def export_predict(asm, batch_size: int = 1, device: str = "cuda",
     convs = [m for m in model.modules() if isinstance(m, TorchConv3d)]
     for m in convs:
         m._prepared, m._prepared_int8 = None, {}    # what the live model kept
-        m.use_ops = True
     with torch.no_grad():
         pred(*example)
         for m in convs:

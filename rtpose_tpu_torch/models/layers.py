@@ -12,21 +12,20 @@ reference's module names (``conv1``, ``conv2.groupnorm``, ``conv2.conv``),
 so ``state_dict`` keys match ``rtpose_tpu/engine/torch_import.py``.
 
 * ``TorchConv3d`` — torch padding (k // 2) and stride, optional compute
-  dtype.  CUDA bf16 convs of kernel 3, stride 1, 32 -> 32 channels run the
-  hand kernel; every other shape runs ``F.conv3d``.  With grad mode on,
-  bf16 convs of the kernel's shape (CPU tensors too, on its plain version)
-  go through ``ops.conv_k3.Conv3dK3``, whose backward launches the kernel
-  again for grad-input.  Under ``no_grad`` / ``inference_mode`` the cast
-  (and, for the kernel, re-laid) weights are kept on the module between
+  dtype.  bf16 convs of kernel 3, stride 1, 32 -> 32 channels go to K3
+  (``ops.conv_k3``, which picks the route: custom op, plain version or
+  kernel); every other shape runs ``F.conv3d``.  With grad mode on, K3
+  convs go through ``ops.conv_k3.Conv3dK3``, whose backward launches the
+  kernel again for grad-input.  Under ``no_grad`` / ``inference_mode`` the
+  cast (and, for K3, re-laid) weights are kept on the module between
   calls.
   Its ``site`` (the JAX package's flax path, set by
   ``engine.convert.bind_sites``) keys it in the int8 quant context
   (``ops/quant.py``): under ``calibrate`` it records its input statistic
   and runs float; under ``int8_mode``, with a scale for its site, it runs
-  ``quant.conv3d_int8``.  ``use_ops`` sends the kernels through their
-  ``torch.ops.rtpose`` custom ops and ``freeze`` turns the kept weights
-  into buffers, so ``torch.export`` can trace the module (the serving
-  export).
+  the int8 conv.  ``freeze`` turns the kept weights into buffers, so
+  ``torch.export`` can trace the module (the serving export), and reaches
+  the kernels through their ``torch.ops.rtpose`` custom ops.
 * ``GroupNorm8`` — float32 statistics, eps 1e-5, one group when C < 8,
   output cast back to the input dtype.
 * ``SingleConv`` (order strings g/c/r/l/e), ``ResNetBlock``, ``GNConv``.
@@ -53,10 +52,8 @@ def canonical_dtype(dtype) -> Optional[torch.dtype]:
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
            stride: int = 1) -> torch.Tensor:
-    """Channels-last conv3d with torch padding k // 2 (``conv3d_naive``
+    """Channels-last ``F.conv3d`` with torch padding k // 2 (``conv3d_naive``
     semantics, ``rtpose_tpu/ops/fold_conv.py:264-274``)."""
-    if conv_k3.supports(x, w, stride):
-        return conv_k3.conv3d_k3(x, w, bias)
     k = w.shape[-1]
     out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, stride=stride, padding=k // 2)
     return out.permute(0, 2, 3, 4, 1).contiguous()
@@ -77,7 +74,6 @@ class TorchConv3d(nn.Module):
         self._prepared = None       # (key, parameter aliases, prepared tensors)
         self._prepared_int8 = {}    # activation scale -> the same, int8 weights
         self._frozen = None         # after ``freeze``: slot -> buffer names
-        self.use_ops = False        # launch the kernels through torch.ops.rtpose
 
     def _weights(self, x: torch.Tensor, prepare, scale: Optional[float] = None):
         """``prepare(weight, bias)`` (a tuple of tensors or None) for ``x``
@@ -108,8 +104,7 @@ class TorchConv3d(nn.Module):
     def freeze(self) -> None:
         """Keep the weights prepared so far (by a forward under ``no_grad``)
         as non-persistent buffers and use nothing else: the module no longer
-        follows its parameters.  With ``use_ops`` set before that forward,
-        for tracing with ``torch.export``."""
+        follows its parameters: for tracing with ``torch.export``."""
         slots = dict(self._prepared_int8)
         if self._prepared is not None:
             slots[None] = self._prepared
@@ -132,20 +127,14 @@ class TorchConv3d(nn.Module):
                                    "engine.convert.bind_sites(model) names them")
             scale = quant.consult(self.site, x)
             if scale is not None:
-                wq, qscale, b, wk = self._weights(
+                prepared = self._weights(
                     x, lambda w, b: quant.prepare(w, b, scale, self.stride), scale)
-                return quant.conv3d_int8_prepared(
-                    quant._quantize_act(x, scale), wq, qscale, b, wk, self.stride, x.dtype,
-                    use_op=self.use_ops)
+                return quant.conv3d_int8_prepared(x, scale, prepared, self.stride)
         if conv_k3.supports(x, self.weight, self.stride):
             if torch.is_grad_enabled():
                 # the kernel with its backward: the parameters get gradients
                 return conv_k3.Conv3dK3.apply(x, self.weight, self.bias)
-            if x.device.type == "cuda" or self.use_ops:
-                wr, b = self._weights(x, conv_k3.prepare)
-                if self.use_ops:
-                    return torch.ops.rtpose.conv3d_k3(x, wr, b)
-                return conv_k3.launch(x, wr, b)
+            return conv_k3.launch(x, *self._weights(x, conv_k3.prepare))
         w, b = self._weights(x, lambda w, b: (
             w.to(x.dtype), None if b is None else b.to(x.dtype)))
         return conv3d(x, w, b, self.stride)

@@ -6,11 +6,20 @@ Each source is a plain-C-interface ``.cu`` file compiled by ``nvcc`` for
 that has no library yet: one ``nvcc`` per source, all started together.
 Libraries are named by a hash of their source, so an edited kernel is
 rebuilt and a stale one is never loaded.  Nothing here runs at import.
+
+Every kernel wrapper reaches its kernel through ``launch``, which runs it on
+the current stream, raises on a CUDA error and counts the launch under one
+of its library's counters (``launch_counts``).  ``dispatch_mode_active``
+and ``sm_count`` are the rest of what the wrappers share: a wrapper goes
+through its ``torch.ops.rtpose`` custom op (``ops/library.py``) while a
+dispatch mode is active, takes its plain version on a CPU tensor, and
+launches its kernel on a CUDA one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,6 +27,8 @@ import subprocess
 import threading
 import time
 from typing import Dict
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -27,17 +38,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library name -> (source file, exported function, its argument types)
+# library name -> (source file, exported function, its argument types (the
+# last one the stream), the counters its launches are counted under)
 KERNELS = {
     "preprocess": ("preprocess.cu", "rtpose_preprocess",
-                   [_P, _P] + [_I] * 12 + [_F, _F, _P]),
+                   [_P, _P] + [_I] * 12 + [_F, _F, _P], ("preprocess", "preprocess_single")),
     "conv_k3": ("conv_k3.cu", "rtpose_conv3d_k3",
-                [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+                [_P, _P, _P, _P] + [_I] * 10 + [_P], ("conv3d_k3", "conv3d_k3_bwd")),
     "conv_k3_int8": ("conv_k3_int8.cu", "rtpose_conv3d_k3_int8",
-                     [_P] * 5 + [_I] * 11 + [_P]),
+                     [_P] * 5 + [_I] * 11 + [_P], ("conv3d_k3_int8",)),
     "deform_conv": ("deform_conv.cu", "rtpose_deform_conv2d",
-                    [_P] * 4 + [_I] * 8 + [_P]),
+                    [_P] * 4 + [_I] * 8 + [_P], ("deform_conv2d",)),
 }
+# counter -> kernel launches since the last ``reset_launch_counts``
+_launches: Dict[str, int] = {c: 0 for *_, counters in KERNELS.values() for c in counters}
 
 _lock = threading.Lock()
 _funcs: Dict[str, ctypes._CFuncPtr] = {}
@@ -71,7 +85,7 @@ def build_all() -> Dict[str, dict]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
         for name in pending:
-            src, _, _ = KERNELS[name]
+            src = KERNELS[name][0]
             path = _lib_path(src)
             if os.path.isfile(path):
                 build_log[name] = {"seconds": 0.0, "log": "cached"}
@@ -92,7 +106,7 @@ def build_all() -> Dict[str, dict]:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in pending:
-            src, fn_name, argtypes = KERNELS[name]
+            src, fn_name, argtypes, _ = KERNELS[name]
             fn = getattr(ctypes.CDLL(_lib_path(src)), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -100,14 +114,44 @@ def build_all() -> Dict[str, dict]:
         return build_log
 
 
-def kernel(name: str):
-    """The ctypes function of kernel library ``name``, built on first use."""
-    if name not in _funcs:
+def launch(library: str, counter: str, device: torch.device, *args) -> None:
+    """Run kernel library ``library`` on ``args`` and the current stream of
+    ``device``, raise if it returns a CUDA error, and count one launch
+    under ``counter``, one of the library's ``KERNELS`` counters."""
+    if library not in _funcs:
         build_all()
-    return _funcs[name]
-
-
-def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    rc = _funcs[library](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{counter} kernel launch failed with CUDA error {rc}")
+    _launches[counter] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per counter since the last reset.  Only ``launch``
+    adds to them, so the replays of a captured CUDA graph, which pass no
+    wrapper, are not in them."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for c in _launches:
+        _launches[c] = 0
+
+
+def dispatch_mode_active() -> bool:
+    """True while a ``TorchDispatchMode`` is active on this thread (a
+    ``FlopCounterMode``, the trace of ``torch.export``): a launch on raw
+    pointers is invisible to it, so the wrappers go through their custom
+    ops instead."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (one without an index: the current one)."""
+    return _multiprocessors(torch.cuda.current_device() if device.index is None
+                            else device.index)

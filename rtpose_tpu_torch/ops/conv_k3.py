@@ -4,8 +4,8 @@ Counterpart of ``rtpose_tpu/ops/pallas_conv.py`` (the Pallas kernel K3,
 ``_pallas_forward``): the CUDA kernel ``csrc/conv_k3.cu`` computes the same
 conv on the unfolded (B, Z, Y, X, 32) layout, with float32 accumulation and
 one rounding to bf16 (TMA-fed input planes, weights resident in shared
-memory, wgmma).  ``models.layers.TorchConv3d`` dispatches every CUDA bf16
-conv of this shape here.
+memory, wgmma).  ``models.layers.TorchConv3d`` dispatches every bf16 conv
+of this shape here.
 
 The backward (``_fused_bwd``, ``pallas_conv.py:211-225``) is ``Conv3dK3``:
 grad-input is the same kernel on the flipped, channel-transposed weights
@@ -13,29 +13,26 @@ grad-input is the same kernel on the flipped, channel-transposed weights
 library's conv weight-gradient (bf16 operands, float32 accumulation), where
 the JAX package used XLA's.
 
-* ``conv3d_k3`` — the kernel's wrapper on torch-layout weights.  A CUDA
-  tensor launches the kernel (or raises on what it does not take); a CPU
-  tensor takes the plain version.
-* ``prepare`` + ``launch`` — the same launch split in two: ``prepare``
-  re-lays torch-layout (Co, Ci, 3, 3, 3) weights to the kernel's
-  (9, 4, 3, 32, 8) [dy * 3 + dx][ci // 8][dz][co][ci % 8] bf16 and the
-  bias to float32, once; ``launch`` runs the kernel on them (``TorchConv3d`` keeps the
-  prepared weights between calls).
+* ``conv3d_k3`` — the wrapper on torch-layout weights: ``prepare``, then
+  ``launch`` (raises on a shape or dtype the kernel does not take).
+* ``prepare`` + ``launch`` — the same split in two: ``prepare`` re-lays
+  torch-layout (Co, Ci, 3, 3, 3) weights to the kernel's (9, 4, 3, 32, 8)
+  [dy * 3 + dx][ci // 8][dz][co][ci % 8] bf16 and the bias to float32,
+  once (``TorchConv3d`` keeps them between calls); ``launch`` runs the
+  conv on them by ``build``'s rule: through the ``torch.ops.rtpose``
+  custom op (``ops/library.py``) while a ``TorchDispatchMode`` is active
+  (a ``FlopCounterMode`` sees the op and counts its registered formula;
+  ``torch.export`` traces it), the plain version on a CPU tensor, the
+  kernel on a CUDA tensor (or an error on what it does not take).  The
+  op's implementation is ``launch`` again, with the mode off.
 * ``plan`` — the launch plan the kernel runs: tile shape, padded row width,
   stages of the input ring, shared memory and grid.
 * ``conv3d_k3_reference`` — the plain version: ``F.conv3d`` in float32 on
   the bf16-rounded operands, bias added in float32, rounded to bf16.
-* ``Conv3dK3`` — the autograd Function over the kernel; ``grad_input`` /
-  ``grad_weight`` are its two backward halves (a CPU tensor takes the plain
-  versions: ``conv3d_k3_reference`` on the flipped weights, and the float32
-  weight-gradient of ``F.conv3d`` on bf16-rounded operands).
-
-A launch on raw pointers is invisible to a ``TorchDispatchMode`` such as
-``torch.utils.flop_counter.FlopCounterMode``.  So while one is active
-(``dispatch_mode_active``) the wrappers launch through their
-``torch.ops.rtpose`` custom op (``ops/library.py``), which the mode sees and
-whose CUDA implementation comes back to the wrapper with the mode off: the
-kernel runs either way, and the counter reads the op's registered formula.
+* ``Conv3dK3`` — the autograd Function over ``conv3d_k3``; ``grad_input``
+  (``launch_grad_input`` on ``prepare_flipped`` weights, by the same rule)
+  and ``grad_weight`` (on the CPU the float32 weight-gradient of
+  ``F.conv3d`` on bf16-rounded operands) are its two backward halves.
 """
 
 from __future__ import annotations
@@ -49,16 +46,6 @@ import torch.nn.functional as F
 from . import build
 
 C = 32
-
-# kernel launches since the last reset (ops.reset_launch_counts): the
-# forward conv, and the grad-input conv of the backward
-launches = 0
-launches_bwd = 0
-
-
-def dispatch_mode_active() -> bool:
-    """True while a ``TorchDispatchMode`` is active on this thread."""
-    return torch._C._len_torch_dispatch_stack() > 0
 
 
 def flops(x_shape) -> int:
@@ -223,18 +210,9 @@ def plan(B: int, Z: int, Y: int, X: int, sms: int) -> Plan:
     return min(found)[1]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Z, Y, X, 32) bf16 -> (B, Z, Y, X, 32) bf16, zero padding 1."""
-    if x.device.type == "cpu":
-        return conv3d_k3_reference(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_k3: unsupported device {x.device}")
     if not supports(x, w, 1):
         raise ValueError(f"conv3d_k3: needs (B, Z, Y, X, 32) bf16 and (32, 32, 3, 3, 3) "
                          f"weights, got {tuple(x.shape)} {x.dtype}, {tuple(w.shape)}")
@@ -243,20 +221,21 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
 
 def launch(x: torch.Tensor, wr: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel on a CUDA (B, Z, Y, X, 32) bf16 input with ``prepare``d
-    weights and bias (the forward conv)."""
-    global launches
-    if dispatch_mode_active():
+    """The forward conv of a (B, Z, Y, X, 32) bf16 input on ``prepare``d
+    weights and bias, by the module's rule (custom op, plain version or
+    kernel)."""
+    if build.dispatch_mode_active():
         return torch.ops.rtpose.conv3d_k3(x, wr, bias)
-    out = _run(x, wr, bias)
-    launches += 1
-    return out
+    if x.device.type == "cpu":
+        return conv3d_k3_reference(x, unprepare(wr), bias)
+    return _run(x, wr, bias, "conv3d_k3")
 
 
-def _run(x: torch.Tensor, wr: torch.Tensor, bias: Optional[torch.Tensor],
+def _run(x: torch.Tensor, wr: torch.Tensor, bias: Optional[torch.Tensor], counter: str,
          p: Optional[Plan] = None) -> torch.Tensor:
-    """One launch, on ``plan``'s launch plan unless ``p`` names another
-    (``tools.k3_plans`` times each candidate)."""
+    """One kernel launch, counted under ``counter``, on ``plan``'s launch
+    plan unless ``p`` names another (``tools.k3_plans`` times each
+    candidate)."""
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 5 \
             or x.shape[-1] != C:
         raise ValueError(f"conv3d_k3: needs a CUDA (B, Z, Y, X, 32) bf16 input, "
@@ -278,36 +257,28 @@ def _run(x: torch.Tensor, wr: torch.Tensor, bias: Optional[torch.Tensor],
     if out.numel() == 0:
         return out
     if p is None:
-        p = plan(B, Z, Y, X, _sm_count(x.device.index if x.device.index is not None
-                                       else torch.cuda.current_device()))
-    rc = build.kernel("conv_k3")(
-        x.data_ptr(), wr.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "conv3d_k3 kernel")
+        p = plan(B, Z, Y, X, build.sm_count(x.device))
+    build.launch("conv_k3", counter, x.device,
+                 x.data_ptr(), wr.data_ptr(), None if bias is None else bias.data_ptr(),
+                 out.data_ptr(), B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid)
     return out
 
 
 def grad_input(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """d(loss)/dx of the conv from the output gradient ``g`` (B, Z, Y, X, 32)
     and the torch-layout weights: the same conv on ``flip_transpose(w)``,
-    bf16 in and out.  A CUDA tensor launches the kernel, a CPU tensor takes
-    the plain version."""
-    g = g.to(torch.bfloat16).contiguous()
-    if g.device.type == "cpu":
-        return conv3d_k3_reference(g, flip_transpose(w))
-    return launch_grad_input(g, prepare_flipped(w))
+    bf16 in and out."""
+    return launch_grad_input(g.to(torch.bfloat16).contiguous(), prepare_flipped(w))
 
 
 def launch_grad_input(g: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
-    """The kernel on a CUDA (B, Z, Y, X, 32) bf16 output gradient with
-    ``prepare_flipped`` weights (the grad-input conv)."""
-    global launches_bwd
-    if dispatch_mode_active():
+    """The grad-input conv of a (B, Z, Y, X, 32) bf16 output gradient on
+    ``prepare_flipped`` weights, by the module's rule."""
+    if build.dispatch_mode_active():
         return torch.ops.rtpose.conv3d_k3_grad_input(g, wr)
-    out = _run(g, wr, None)
-    launches_bwd += 1
-    return out
+    if g.device.type == "cpu":
+        return conv3d_k3_reference(g, unprepare(wr))
+    return _run(g, wr, None, "conv3d_k3_bwd")
 
 
 def grad_weight(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -336,13 +307,7 @@ class Conv3dK3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias=None):
-        if x.device.type == "cpu":
-            out = conv3d_k3_reference(x, weight, bias)
-        else:
-            if not supports(x, weight, 1):
-                raise ValueError(f"Conv3dK3: needs (B, Z, Y, X, 32) bf16 and (32, 32, 3, 3, 3) "
-                                 f"weights, got {tuple(x.shape)} {x.dtype}, {tuple(weight.shape)}")
-            out = launch(x, *prepare(weight, bias))
+        out = conv3d_k3(x, weight, bias)
         ctx.save_for_backward(x, weight)
         ctx.has_bias = bias is not None
         return out

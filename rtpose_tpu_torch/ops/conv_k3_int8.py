@@ -24,14 +24,16 @@ an N order of the weights (``N_CHANNEL``) that leaves each thread 8
 contiguous output channels, so that every store is 16 bytes of a whole
 line.  The source's notes give the details.
 
-* ``conv3d_k3_int8`` — the wrapper on int8 torch-layout weights.  A CUDA
-  tensor launches the kernel (or raises on what it does not take); a CPU
-  tensor takes the plain version.
+* ``conv3d_k3_int8`` — the wrapper on int8 torch-layout weights:
+  ``prepare``, then ``launch`` (raises on weights the kernel does not take).
 * ``prepare`` + ``launch`` — the same split in two: ``prepare`` re-lays
   (32, 32, 3, 3, 3) int8 weights to the kernel's (9, 2, 3, 32, 16)
   [dy * 3 + dx][ci // 16][dz][n][ci % 16] int8 (output channels in the
-  ``N_CHANNEL`` order), once; ``launch`` runs the kernel on them.  ``unprepare`` is its inverse.  Both refuse any other
-  shape, so the (27, 32, 32) layout of earlier artifacts is never misread.
+  ``N_CHANNEL`` order), once; ``launch`` runs the conv on them by
+  ``conv_k3``'s rule: the custom op while a dispatch mode is active, the
+  plain version on a CPU tensor, the kernel on a CUDA one.  ``unprepare``
+  is ``prepare``'s inverse.  Both refuse any other shape, so the
+  (27, 32, 32) layout of earlier artifacts is never misread.
 * ``plan`` — the launch plan the kernel runs: tile shape, padded row width,
   stages of the input ring, shared memory and grid.
 * ``conv3d_k3_int8_reference`` — the plain version: ``F.conv3d`` in float64
@@ -58,9 +60,6 @@ PREPARED_SHAPE = (9, 2, 3, C, 16)
 # contiguous channels of its rows (the permutation is its own inverse)
 N_CHANNEL = tuple(8 * (n // 2 % 4) + 2 * (n // 8) + n % 2 for n in range(C))
 
-# kernel launches since the last reset (ops.reset_launch_counts)
-launches = 0
-
 _OUT_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -69,7 +68,8 @@ def supports_weight(wq: torch.Tensor, stride: int) -> bool:
     return stride == 1 and tuple(wq.shape) == (C, C, 3, 3, 3)
 
 
-def _check_prepared(wk: torch.Tensor) -> None:
+def check_prepared(wk: torch.Tensor) -> None:
+    """Raise unless ``wk`` has ``prepare``'s shape and dtype."""
     if tuple(wk.shape) != PREPARED_SHAPE or wk.dtype != torch.int8:
         raise ValueError(f"conv3d_k3_int8: weights must be prepared {PREPARED_SHAPE} int8 "
                          f"(ops.conv_k3_int8.prepare), got {tuple(wk.shape)} {wk.dtype}")
@@ -88,7 +88,7 @@ def prepare(wq: torch.Tensor) -> torch.Tensor:
 
 def unprepare(wk: torch.Tensor) -> torch.Tensor:
     """The inverse of ``prepare``: (9, 2, 3, 32, 16) -> (Co, Ci, 3, 3, 3)."""
-    _check_prepared(wk)
+    check_prepared(wk)
     wr = wk[:, :, :, list(N_CHANNEL)]
     return wr.reshape(3, 3, 2, 3, C, 16).permute(4, 2, 5, 3, 0, 1).reshape(C, C, 3, 3, 3)
 
@@ -145,10 +145,6 @@ def conv3d_k3_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     """(B, Z, Y, X, 32) int8, (32, 32, 3, 3, 3) int8 weights, (32,) float32
     ``scale`` (``sw * act_scale``), optional (32,) float32 bias -> (B, Z, Y,
     X, 32) ``out_dtype`` (bf16 or float32), zero padding 1."""
-    if xq.device.type == "cpu":
-        return conv3d_k3_int8_reference(xq, wq, scale, bias, out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"conv3d_k3_int8: unsupported device {xq.device}")
     if not supports_weight(wq, 1) or wq.dtype != torch.int8:
         raise ValueError(f"conv3d_k3_int8: needs (32, 32, 3, 3, 3) int8 weights, got "
                          f"{tuple(wq.shape)} {wq.dtype}")
@@ -157,15 +153,13 @@ def conv3d_k3_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 def launch(xq: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
            bias: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The kernel on a CUDA (B, Z, Y, X, 32) int8 input with ``prepare``d
-    weights.  Under a dispatch mode it launches through its custom op, as
-    ``conv_k3.launch`` does."""
-    global launches
-    if conv_k3.dispatch_mode_active():
+    """The conv of a (B, Z, Y, X, 32) int8 input on ``prepare``d weights,
+    by the module's rule (custom op, plain version or kernel)."""
+    if build.dispatch_mode_active():
         return torch.ops.rtpose.conv3d_k3_int8(xq, wk, scale, bias, out_dtype)
-    out = _run(xq, wk, scale, bias, out_dtype)
-    launches += 1
-    return out
+    if xq.device.type == "cpu":
+        return conv3d_k3_int8_reference(xq, unprepare(wk), scale, bias, out_dtype)
+    return _run(xq, wk, scale, bias, out_dtype)
 
 
 def _check_vec(name: str, t: torch.Tensor, dev) -> None:
@@ -175,15 +169,10 @@ def _check_vec(name: str, t: torch.Tensor, dev) -> None:
                          f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _run(xq, wk, scale, bias, out_dtype, p: Optional[Plan] = None) -> torch.Tensor:
-    """One launch, on ``plan``'s launch plan unless ``p`` names another
+    """One kernel launch, on ``plan``'s launch plan unless ``p`` names another
     (``tools.k3_plans --int8`` times each candidate)."""
-    _check_prepared(wk)
+    check_prepared(wk)
     if (xq.device.type != "cuda" or xq.dtype != torch.int8 or xq.dim() != 5
             or xq.shape[-1] != C):
         raise ValueError(f"conv3d_k3_int8: needs a CUDA (B, Z, Y, X, 32) int8 input, got "
@@ -203,12 +192,9 @@ def _run(xq, wk, scale, bias, out_dtype, p: Optional[Plan] = None) -> torch.Tens
     if out.numel() == 0:
         return out
     if p is None:
-        p = plan(B, Z, Y, X, _sm_count(xq.device.index if xq.device.index is not None
-                                        else torch.cuda.current_device()))
-    rc = build.kernel("conv_k3_int8")(
-        xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), _OUT_CODE[out_dtype],
-        B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid,
-        torch.cuda.current_stream(xq.device).cuda_stream)
-    build.check(rc, "conv3d_k3_int8 kernel")
+        p = plan(B, Z, Y, X, build.sm_count(xq.device))
+    build.launch("conv_k3_int8", "conv3d_k3_int8", xq.device,
+                 xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(), _OUT_CODE[out_dtype],
+                 B, Z, Y, X, p.wp, p.ty, p.nbw, p.positions, p.stages, p.grid)
     return out

@@ -54,10 +54,10 @@ its matrix product (again in the backward's recomputation); on the kernel
 route ``dcn.fused`` around the launch.  ``counts()`` holds what the calls
 since ``reset()`` asked for: ``calls``, ``samples`` (bilinear samples, n *
 Ho * Wo * K * dg) and ``column_elems`` (im2col elements, n * Ho * Wo * K *
-C) on either route, ``chunks`` the plain route's chunks and
-``kernel_calls`` the calls the kernel served; the Python call adds to them,
-so a captured call counts once and the replays of its CUDA graph do not.
-``launches`` counts the kernel's launches (``ops.launch_counts``).
+C) on either route, and ``chunks`` the plain route's chunks; the Python
+call adds to them, so a captured call counts once and the replays of its
+CUDA graph do not.  The kernel's launches are ``ops.launch_counts()``'s
+``deform_conv2d``.
 """
 
 from __future__ import annotations
@@ -70,16 +70,12 @@ import torch.utils.checkpoint
 
 from ..utils import trace
 from . import build
-from .conv_k3 import _sm_count, dispatch_mode_active
 
 CHUNK_ELEMS = 1 << 28     # im2col elements per chunk (512 MB in bf16)
 # the kernel's output positions a tile, input channels a step, output channels a block
 TILE_M, STEP_C, TILE_N = 128, 64, 128
 
-_COUNTS = dict(calls=0, chunks=0, samples=0, column_elems=0, kernel_calls=0)
-
-# kernel launches since the last reset (ops.reset_launch_counts)
-launches = 0
+_COUNTS = dict(calls=0, chunks=0, samples=0, column_elems=0)
 
 
 def counts() -> dict:
@@ -169,7 +165,7 @@ def kernel_route(x, offset, weight, bias, mask, stride, dilation, deformable_gro
     return (x.is_cuda and offset.is_cuda and weight.is_cuda
             and not _needs_grad(x, offset, weight, bias, mask)
             and x.dtype == weight.dtype == torch.bfloat16 and offset.dtype == torch.float32
-            and mask is None and bias is None and not dispatch_mode_active()
+            and mask is None and bias is None and not build.dispatch_mode_active()
             and (Kh, Kw, stride, dilation) == (3, 3, 1, 1) and max(x.shape[1:3]) < 1 << 15
             and C % STEP_C == 0 and (C // deformable_groups) % 8 == 0 and Cout % TILE_N == 0
             and deformable_groups <= 8)
@@ -207,7 +203,6 @@ def launch(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor, padding:
            deformable_groups: int) -> torch.Tensor:
     """The kernel on CUDA bf16 x (B, H, W, C), float32 offsets and bf16
     (3, 3, C, Cout) weights, under ``kernel_route``'s conditions."""
-    global launches
     B, H, W, C = x.shape
     _, Ho, Wo, _ = offset.shape
     Cout = weight.shape[-1]
@@ -218,12 +213,9 @@ def launch(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor, padding:
     if out.numel() == 0:
         return out
     work = -(-B * Ho * Wo // TILE_M) * (Cout // TILE_N)
-    sms = _sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
-    rc = build.kernel("deform_conv")(
-        x.data_ptr(), offset.data_ptr(), wr.data_ptr(), out.data_ptr(), B, H, W, C, Cout,
-        deformable_groups, padding, min(work, sms), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "deform_conv2d kernel")
-    launches += 1
+    build.launch("deform_conv", "deform_conv2d", x.device,
+                 x.data_ptr(), offset.data_ptr(), wr.data_ptr(), out.data_ptr(), B, H, W, C, Cout,
+                 deformable_groups, padding, min(work, build.sm_count(x.device)))
     return out
 
 
@@ -250,7 +242,6 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     _COUNTS["samples"] += positions * deformable_groups
     _COUNTS["column_elems"] += positions * C
     if kernel_route(x, offset, weight, bias, mask, stride, dilation, deformable_groups):
-        _COUNTS["kernel_calls"] += 1
         with trace.span("dcn.fused"):
             return launch(x, offset, weight, padding, deformable_groups)
     step = max(1, CHUNK_ELEMS // max(1, Ho * Wo * Kh * Kw * C))

@@ -12,11 +12,11 @@ serving artifact (``export.py``) reaches the kernels through these ops:
   ``conv_k3.prepare_flipped`` weights (no artifact holds it: the wrappers
   launch through the ops while a dispatch mode is active, ``conv_k3``).
 
-Each has a fake (meta) implementation for tracing, a CUDA implementation
-that calls the kernel's wrapper (which counts the launch), and a CPU
-implementation that is the kernel's plain version.  Importing
-``rtpose_tpu_torch.ops`` registers them; a loaded artifact needs nothing
-else of the package.
+Each has a fake (meta) implementation for tracing and one for the CPU and
+CUDA that is the kernel's wrapper, called with the mode off: the plain
+version on a CPU tensor, the kernel (whose launch is counted) on a CUDA
+one.  Importing ``rtpose_tpu_torch.ops`` registers them; a loaded artifact
+needs nothing else of the package.
 
 Importing it also registers the conv ops' formulas with
 ``torch.utils.flop_counter`` (two operations per multiply-add over the full
@@ -36,14 +36,12 @@ from torch.utils.flop_counter import flop_registry, register_flop_formula
 from . import conv_k3, conv_k3_int8, preprocess
 
 
-@torch.library.custom_op("rtpose::preprocess", mutates_args=(), device_types="cpu")
+_DEVICES = ("cpu", "cuda")
+
+
+@torch.library.custom_op("rtpose::preprocess", mutates_args=(), device_types=_DEVICES)
 def preprocess_op(raw: torch.Tensor, roi: List[int], norm_start: float,
                   norm_scale: float) -> torch.Tensor:
-    return preprocess.preprocess_reference(raw, roi, norm_start, norm_scale)
-
-
-@preprocess_op.register_kernel("cuda")
-def _(raw, roi, norm_start, norm_scale):
     return preprocess.fused_preprocess_batch(raw, roi, norm_start, norm_scale)
 
 
@@ -54,14 +52,9 @@ def _(raw, roi, norm_start, norm_scale):
                          dtype=torch.float32)
 
 
-@torch.library.custom_op("rtpose::conv3d_k3", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("rtpose::conv3d_k3", mutates_args=(), device_types=_DEVICES)
 def conv3d_k3_op(x: torch.Tensor, wr: torch.Tensor,
                  bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return conv_k3.conv3d_k3_reference(x, conv_k3.unprepare(wr), bias)
-
-
-@conv3d_k3_op.register_kernel("cuda")
-def _(x, wr, bias):
     return conv_k3.launch(x, wr, bias)
 
 
@@ -70,31 +63,21 @@ def _(x, wr, bias):
     return torch.empty_like(x, dtype=torch.bfloat16)
 
 
-@torch.library.custom_op("rtpose::conv3d_k3_int8", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("rtpose::conv3d_k3_int8", mutates_args=(), device_types=_DEVICES)
 def conv3d_k3_int8_op(xq: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
                       bias: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
-    return conv_k3_int8.conv3d_k3_int8_reference(xq, conv_k3_int8.unprepare(wk), scale, bias,
-                                                 out_dtype)
-
-
-@conv3d_k3_int8_op.register_kernel("cuda")
-def _(xq, wk, scale, bias, out_dtype):
     return conv_k3_int8.launch(xq, wk, scale, bias, out_dtype)
 
 
 @conv3d_k3_int8_op.register_fake
 def _(xq, wk, scale, bias, out_dtype):
-    conv_k3_int8._check_prepared(wk)
+    conv_k3_int8.check_prepared(wk)
     return torch.empty_like(xq, dtype=out_dtype)
 
 
-@torch.library.custom_op("rtpose::conv3d_k3_grad_input", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("rtpose::conv3d_k3_grad_input", mutates_args=(),
+                         device_types=_DEVICES)
 def conv3d_k3_grad_input_op(g: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
-    return conv_k3.conv3d_k3_reference(g, conv_k3.unprepare(wr))
-
-
-@conv3d_k3_grad_input_op.register_kernel("cuda")
-def _(g, wr):
     return conv_k3.launch_grad_input(g, wr)
 
 

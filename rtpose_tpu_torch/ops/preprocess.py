@@ -23,11 +23,6 @@ import torch
 
 from . import build
 
-# kernel launches since the last reset (ops.reset_launch_counts), by the
-# wrapper they came through: ``fused_preprocess_batch`` / ``fused_preprocess``
-launches = 0
-launches_single = 0
-
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -48,14 +43,13 @@ def fused_preprocess_batch(cubes: torch.Tensor,
     the static INCLUSIVE ROI ``(z0, z1, y0, y1, x0, x1)``."""
     if cubes.device.type == "cpu":
         return preprocess_reference(cubes, roi_idx, norm_start, norm_scale)
-    global launches
-    out = _launch(cubes, roi_idx, norm_start, norm_scale)
-    launches += 1
-    return out
+    return _launch(cubes, roi_idx, norm_start, norm_scale, "preprocess")
 
 
-def _launch(cubes: torch.Tensor, roi_idx, norm_start: float, norm_scale: float) -> torch.Tensor:
-    """Check a CUDA (B, D, Z, Y, X) tensor and launch the kernel on it."""
+def _launch(cubes: torch.Tensor, roi_idx, norm_start: float, norm_scale: float,
+            counter: str) -> torch.Tensor:
+    """Check a CUDA (B, D, Z, Y, X) tensor and launch the kernel on it,
+    counted under ``counter`` (the wrapper it came through)."""
     if cubes.device.type != "cuda":
         raise ValueError(f"preprocess kernel: unsupported device {cubes.device}")
     if cubes.dtype not in _DTYPE_CODE:
@@ -71,11 +65,9 @@ def _launch(cubes: torch.Tensor, roi_idx, norm_start: float, norm_scale: float) 
     if B * zo > 65535 or yo > 65535:
         raise ValueError("preprocess kernel: grid too large")
     out = torch.empty((B, zo, yo, xo, D), dtype=torch.float32, device=cubes.device)
-    rc = build.kernel("preprocess")(
-        cubes.data_ptr(), out.data_ptr(), _DTYPE_CODE[cubes.dtype], B, D, Z, Y, X,
-        z0, y0, x0, zo, yo, xo, float(norm_start), 1.0 / float(norm_scale),
-        torch.cuda.current_stream(cubes.device).cuda_stream)
-    build.check(rc, "preprocess kernel")
+    build.launch("preprocess", counter, cubes.device,
+                 cubes.data_ptr(), out.data_ptr(), _DTYPE_CODE[cubes.dtype], B, D, Z, Y, X,
+                 z0, y0, x0, zo, yo, xo, float(norm_start), 1.0 / float(norm_scale))
     return out
 
 
@@ -88,7 +80,4 @@ def fused_preprocess(cube: torch.Tensor,
         raise ValueError(f"expected (D, Z, Y, X), got shape {tuple(cube.shape)}")
     if cube.device.type == "cpu":
         return preprocess_reference(cube, roi_idx, norm_start, norm_scale)
-    global launches_single
-    out = _launch(cube.unsqueeze(0), roi_idx, norm_start, norm_scale)[0]
-    launches_single += 1
-    return out
+    return _launch(cube.unsqueeze(0), roi_idx, norm_start, norm_scale, "preprocess_single")[0]

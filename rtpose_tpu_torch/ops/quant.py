@@ -21,14 +21,14 @@ and the HRNet final fuse consult the context (``consult``) under their
 How the int32 accumulator is computed, by shape and device (a dispatch,
 no fallback):
 
-* CUDA, the K3 shape (3x3x3, stride 1, 32 -> 32, channels-last): the hand
-  kernel ``ops/conv_k3_int8.py`` (accumulator and epilogue fused);
+* the K3 shape (3x3x3, stride 1, 32 -> 32, channels-last):
+  ``conv_k3_int8.launch`` (on CUDA the hand kernel, accumulator and
+  epilogue fused; on the CPU its plain version);
 * every other CUDA shape: an int8 im2col (padding and stride included) and
   ``torch._int_mm`` (int8 x int8 -> int32, exact);
-* CPU tensors: the plain version, ``F.conv3d`` in float32 on the
-  int8-valued tensors, over chunks of input channels whose sums cannot
-  reach 2^24 (exact: every partial sum is a representable integer), the
-  chunks added as int32.
+* other CPU shapes: ``F.conv3d`` in float32 on the int8-valued tensors,
+  over chunks of input channels whose sums cannot reach 2^24 (exact: every
+  partial sum is a representable integer), the chunks added as int32.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ def int8_conv_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int) -> torch.Tens
     reach 2^24 (so every partial sum is an exact integer, in any order),
     the chunks' results added as int32; CUDA: an int8 im2col and
     ``torch._int_mm`` (no hand kernel: ``conv3d_int8_prepared`` sends the
-    K3 shape to its kernel before this)."""
+    K3 shape to ``conv_k3_int8.launch`` before this)."""
     k = wq.shape[-1]
     p = k // 2
     if xq.device.type == "cpu":
@@ -238,18 +238,18 @@ def prepare(w: torch.Tensor, bias: Optional[torch.Tensor], act_scale: float, str
     return wq, scale, b, wk
 
 
-def conv3d_int8_prepared(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
-                         bias: Optional[torch.Tensor], wk: Optional[torch.Tensor],
-                         stride: int, out_dtype, use_op: bool = False) -> torch.Tensor:
-    """The int8 conv on a quantized input and ``prepare``d weights.  A CUDA
-    input of the K3 shape launches the hand kernel (``use_op``: through its
-    ``torch.ops.rtpose`` custom op, which ``torch.export`` can trace);
-    everything else takes ``int8_conv_acc`` and ``epilogue``."""
+def conv3d_int8_prepared(x: torch.Tensor, act_scale: float, prepared: tuple, stride: int,
+                         out_dtype=None) -> torch.Tensor:
+    """The int8 conv of the UNquantized (B, Z, Y, X, C) activation ``x``,
+    quantized at ``act_scale``, on the ``prepare``d weights ``prepared``.
+    The K3 shape takes ``conv_k3_int8.launch``; everything else takes
+    ``int8_conv_acc`` and ``epilogue``.  Returns the dequantized output in
+    ``out_dtype`` (default the input's dtype)."""
+    wq, scale, bias, wk = prepared
+    xq = _quantize_act(x, act_scale)
+    out_dtype = out_dtype or x.dtype
     if wk is not None and xq.dim() == 5 and xq.shape[-1] == conv_k3_int8.C:
-        if use_op:
-            return torch.ops.rtpose.conv3d_k3_int8(xq, wk, scale, bias, out_dtype)
-        if xq.device.type == "cuda":
-            return conv_k3_int8.launch(xq, wk, scale, bias, out_dtype)
+        return conv_k3_int8.launch(xq, wk, scale, bias, out_dtype)
     return epilogue(int8_conv_acc(xq, wq, stride), scale, bias, out_dtype)
 
 
@@ -259,9 +259,8 @@ def conv3d_int8(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     (B, Z, Y, X, C) activation, ``w`` torch-layout (Co, C, k, k, k) float
     weights.  Returns the dequantized output in ``out_dtype`` (default the
     input's dtype)."""
-    wq, scale, b, wk = prepare(w, bias, act_scale, stride)
-    return conv3d_int8_prepared(_quantize_act(x, act_scale), wq, scale, b, wk, stride,
-                                out_dtype or x.dtype)
+    return conv3d_int8_prepared(x, act_scale, prepare(w, bias, act_scale, stride), stride,
+                                out_dtype)
 
 
 def conv3d_int8_concat_1x1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],

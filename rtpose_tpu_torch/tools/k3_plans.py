@@ -24,6 +24,7 @@ import subprocess
 
 import torch
 
+from ..ops import build
 from ..ops import conv_k3 as ck
 from ..ops import conv_k3_int8 as ck8
 
@@ -89,7 +90,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda")
     mod = ck8 if args.int8 else ck
-    sms = mod._sm_count(torch.cuda.current_device())
+    sms = build.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     if args.int8:
         wk = ck8.prepare(torch.randint(-127, 128, (32, 32, 3, 3, 3), generator=gen, device=dev,
@@ -109,7 +110,7 @@ def main(argv=None) -> int:
             if args.int8:
                 ms = device_ms(lambda: ck8._run(xq, wk, scale, None, torch.bfloat16, p))
             else:
-                ms = device_ms(lambda: ck._run(x, wr, None, p))
+                ms = device_ms(lambda: ck._run(x, wr, None, "conv3d_k3", p))
             row = {"shape": shape, "plan": p._asdict(), "cost": key[0], "ms": ms,
                    "chosen": p == chosen}
             rows.append(row)

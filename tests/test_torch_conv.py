@@ -17,7 +17,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rtpose_tpu.ops import pallas_conv
 from rtpose_tpu.ops.fold_conv import conv3d_naive, fold_x, unfold_x
-from rtpose_tpu_torch.models.layers import TorchConv3d, conv3d
+from torch.utils.flop_counter import FlopCounterMode
+
+from rtpose_tpu_torch import ops
+from rtpose_tpu_torch.models.layers import TorchConv3d
 from rtpose_tpu_torch.ops import conv_k3
 
 BF16_ULP = 2.0 ** -7
@@ -59,22 +62,52 @@ def test_reference_matches_pallas_interpret():
                                rtol=BF16_ULP)
 
 
+def _conv(co=32, stride=1, dtype="bfloat16", device="cpu", w=None):
+    m = TorchConv3d(32, co, stride=stride, bias=False, dtype=dtype)
+    if w is not None:
+        with torch.no_grad():
+            m.weight.copy_(w)
+    return m.to(device)
+
+
 def test_dispatch_rule():
-    """bf16, kernel 3, stride 1, 32 -> 32 goes to K3 (the plain version on
-    the CPU, the kernel or an error elsewhere); other shapes to F.conv3d."""
+    """``TorchConv3d``: bf16, kernel 3, stride 1, 32 -> 32 goes to K3, with
+    and without grad (the plain version on the CPU, launching nothing; the
+    kernel or an error elsewhere); other shapes to F.conv3d."""
     _, _, _, xt, wt = _case(B=1, Z=3, Y=5, X=6, seed=2)
-    conv_k3.launches = 0
-    np.testing.assert_array_equal(_f32(conv3d(xt, wt, None)),
-                                  _f32(conv_k3.conv3d_k3_reference(xt, wt)))
-    assert conv_k3.launches == 0
+    want = _f32(conv_k3.conv3d_k3_reference(xt, wt))
+    m = _conv(w=wt)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        np.testing.assert_array_equal(_f32(m(xt)), want)
+    np.testing.assert_array_equal(_f32(m(xt).detach()), want)      # Conv3dK3
+    assert not any(ops.launch_counts().values())
     meta = torch.empty(xt.shape, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        conv3d(meta, wt.to(torch.bfloat16).to("meta"), None)
-    # not the kernel's shape: stride 2, f32, other channel counts -> F.conv3d
-    assert conv3d(meta, wt.to(torch.bfloat16).to("meta"), None, stride=2).shape == (1, 2, 3, 3, 32)
-    assert conv3d(meta.float(), wt.to("meta"), None).shape == meta.shape
-    w16 = torch.empty((16, 32, 3, 3, 3), dtype=torch.bfloat16, device="meta")
-    assert conv3d(meta, w16, None).shape == (1, 3, 5, 6, 16)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            _conv(device="meta")(meta)
+        # not the kernel's shape: stride 2, f32, other channel counts -> F.conv3d
+        assert _conv(stride=2, device="meta")(meta).shape == (1, 2, 3, 3, 32)
+        assert _conv(dtype=None, device="meta")(meta.float()).shape == meta.shape
+        assert _conv(co=16, device="meta")(meta).shape == (1, 3, 5, 6, 16)
+
+
+def test_torchconv3d_reaches_the_custom_op_only_under_a_dispatch_mode():
+    """Under a ``TorchDispatchMode`` (``FlopCounterMode``) a no-grad K3 conv
+    goes through ``torch.ops.rtpose.conv3d_k3``, which the mode counts;
+    outside one it takes the plain version and the op is not called; the
+    two outputs are bit-equal."""
+    _, _, _, xt, wt = _case(B=1, Z=3, Y=5, X=6, seed=6)
+    m = _conv(w=wt)
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as counter:
+            under = m(xt)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            outside = m(xt)
+    assert set(counter.get_flop_counts()["Global"]) == {torch.ops.rtpose.conv3d_k3}
+    names = {e.name for e in prof.events()}
+    assert "rtpose::conv3d_k3" not in names and "aten::convolution" in names, names
+    assert torch.equal(under, outside)
 
 
 def test_torchconv3d_module_paths():
@@ -128,7 +161,8 @@ def test_prepare_lays_weights_out_for_the_kernel():
     """``prepare`` gives the kernel's (9, 4, 3, 32, 8)
     [dy * 3 + dx][ci // 8][dz][co][ci % 8] bf16 weights and float32 bias;
     unpacking them gives back the torch weights, and ``prepare_flipped``'s
-    give back ``flip_transpose``; ``launch`` takes only CUDA tensors."""
+    give back ``flip_transpose``; ``launch`` on a CPU tensor is the plain
+    version on them."""
     _, _, b, xt, wt = _case(B=1, Z=3, Y=5, X=6, seed=5)
     wr, br = conv_k3.prepare(wt, torch.from_numpy(b))
     assert wr.shape == (9, 4, 3, 32, 8) and wr.dtype == torch.bfloat16 and wr.is_contiguous()
@@ -140,8 +174,8 @@ def test_prepare_lays_weights_out_for_the_kernel():
     assert wf.shape == (9, 4, 3, 32, 8) and wf.is_contiguous()
     np.testing.assert_array_equal(_f32(_unprepare(wf)),
                                   _f32(conv_k3.flip_transpose(wt).to(torch.bfloat16)))
-    with pytest.raises(ValueError, match="CUDA"):
-        conv_k3.launch(xt, wr, br)
+    assert torch.equal(conv_k3.launch(xt, wr, br),
+                       conv_k3.conv3d_k3_reference(xt, wt, torch.from_numpy(b)))
 
 
 # the main path's shapes (eval B=1, training B=8, full and half resolution)

@@ -94,9 +94,13 @@ def test_other_prepared_layouts_refused(old):
 
 
 def test_launch_takes_only_cuda_tensors():
+    """The kernel takes only CUDA tensors: ``launch`` runs the plain version
+    on a CPU tensor and refuses any other device."""
     xq, wq, scale, _ = _case((1, 2, 3, 4), False)
+    wk = ck8.prepare(wq)
+    assert torch.equal(ck8.launch(xq, wk, scale), ck8.conv3d_k3_int8_reference(xq, wq, scale))
     with pytest.raises(ValueError, match="CUDA"):
-        ck8.launch(xq, ck8.prepare(wq), scale)
+        ck8.launch(xq.to("meta"), wk.to("meta"), scale.to("meta"))
 
 
 # ------------------------------------------------------------ launch plan

