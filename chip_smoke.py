@@ -20,6 +20,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      arithmetic in stock ops, no coarser than the plain bf16 route against
      float32, two launches bit-identical; device time beside the plain
      route's and the bound;
+  4c. the GroupNorm kernel (``ops.group_norm``) at the flagship trunk's five
+     shapes at B=1 and B=8: against the plain bf16 route (one bf16 ulp plus
+     2^-16 of the range), two launches bit-identical; device time beside the
+     plain route's and its byte bound (6 bytes an element), each shape and
+     the trunk's 48 calls summed;
   5. the flagship eval path end to end: a synthetic ROI-only dataset of
      300 test frames at the flagship geometry, seeded random weights saved
      as .pth, and ``rtpose_tpu_torch.tools.test`` on configs/cruw_pose/
@@ -32,7 +37,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
   7. four more speed windows, then one run under torch.profiler: device
      time and operations per frame, the card's idle share, the kernels
      with the most device time, and every kernel of the path launched
-     (preprocess once per forward, conv 14 times), counted by symbol in
+     (preprocess once per forward, conv 14 times, GroupNorm 48), counted by symbol in
      the trace and checked against the wrappers and the graph replays;
   8. one frame through the port on the card (bf16 + kernels) against the
      same frame and weights through the port on the CPU in float32;
@@ -255,6 +260,12 @@ FRAMES = 300    # test frames of the synthetic root (2 sequences x 150)
 TRAIN_FRAMES = 96   # train frames of the training root (2 sequences x 48)
 TRAIN_EPOCHS = 2    # --stop_epoch of the training run
 K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
+# GroupNorms of an eval forward (bf16, no grad: the GroupNorm kernel's); none
+# in training, where the plain version keeps the gradient.  The flagship
+# trunk's 48 (the LiDAR backbone's too); ``_phase`` adds its head's
+# shared_conv GroupNorm twice (the heatmap and the 5^3 patches)
+GN_PER_FORWARD = 48
+GN_PHASE = 50
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
 TRACE_EDGE_S = 0.1  # idle card between a traced epoch and its trace window's edges
@@ -676,6 +687,65 @@ def phase_deform(dev):
                 shape=f"({B}, {H}, {W}, {C}) bf16, dg {dg} -> {C}")
 
 
+# the flagship trunk's GroupNorm inputs a frame: (Z, Y, X), C, calls
+GN_SHAPES = (((16, 64, 160), 32, 15), ((8, 32, 80), 32, 16), ((4, 16, 40), 64, 10),
+             ((4, 16, 40), 32, 2), ((2, 8, 20), 64, 5))
+
+
+def phase_group_norm(dev):
+    """The GroupNorm kernel at each of the trunk's shapes, B=1 and B=8,
+    inputs x 3 + 1 and a random affine: against the plain bf16 route (one
+    bf16 ulp plus 2^-16 of the range), two launches bit-identical; device
+    times of the kernel and the plain route (``device_ms``) beside the
+    bound, 6 bytes an element (x read for the statistics, read again and
+    written) over the memory rate; each shape, and the 48 calls of a
+    trunk's forward summed."""
+    import torch
+    from rtpose_tpu_torch.models import GroupNorm8
+    from rtpose_tpu_torch.ops import group_norm as gn
+
+    rows, trunk = [], {}
+    err = 0.0
+    for B in (1, 8):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for zyx, C, calls in GN_SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(11)
+            x = (torch.randn((B, *zyx, C), generator=gen, device=dev) * 3 + 1).to(torch.bfloat16)
+            m = GroupNorm8(C).to(dev)
+            with torch.inference_mode():
+                m.weight.copy_(torch.randn(C, generator=gen, device=dev))
+                m.bias.copy_(torch.randn(C, generator=gen, device=dev))
+                got = m(x)
+                if not torch.equal(got, m(x)):
+                    fail(f"GroupNorm kernel {(B, *zyx, C)}: two launches on the same inputs "
+                         "differ")
+                want = gn.group_norm_reference(x, m.weight, m.bias, m.groups, m.eps)
+                err = max(err, check_close(f"GroupNorm kernel {(B, *zyx, C)}", got, want,
+                                           CONV_RTOL,
+                                           2.0 ** -16 * want.float().abs().max().item()))
+                ms = device_ms(lambda: m(x))
+                plain_ms = device_ms(lambda: gn.group_norm_reference(x, m.weight, m.bias,
+                                                                     m.groups, m.eps))
+            bound = x.numel() * 6 / PEAK_BYTES * 1e3
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+                tot[k] += calls * v
+            rows.append(dict(shape=(B, *zyx, C), calls=calls, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, share_of_bound=bound / ms))
+            print(f"[group_norm] {(B, *zyx, C)} x {calls}: {ms:.4f} ms ({100 * bound / ms:.1f} % "
+                  f"of bound {bound:.4f} ms), plain {plain_ms:.4f} ms")
+        tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+        trunk[f"B{B}"] = tot
+        print(f"[group_norm] trunk at B={B} (48 calls): {tot['ms']:.4f} ms "
+              f"({100 * tot['share_of_bound']:.1f} % of bound {tot['bound_ms']:.4f} ms), plain "
+              f"{tot['plain_ms']:.4f} ms; max err vs plain {err:.3e}")
+    return dict(name="group_norm", route="cuda", source="rtpose_tpu_torch/csrc/group_norm.cu",
+                replaces=None, max_abs_err=err, ms=trunk["B1"]["ms"],
+                plain_ms=trunk["B1"]["plain_ms"], bound_ms=trunk["B1"]["bound_ms"],
+                bound_by="bytes", library_ms=None, share_of_bound=trunk["B1"]["share_of_bound"],
+                trunk=trunk, shapes=rows, deterministic=True,
+                shape="the trunk's 48 GroupNorms of a forward (ms: B=1; trunk: B=1 and B=8)")
+
+
 def phase_conv_int8(dev):
     """The int8 K3 kernel against its plain version, bit for bit, at the main
     path's four shapes (bf16 and float32 out), ragged shapes with bias (one
@@ -1066,9 +1136,10 @@ def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
         fail("the trace holds no device operation")
     launches = eval_launches("e2e traced test", out, symbols)
     forwards = FRAMES + eval_captures(out)
-    if launches["preprocess"] != forwards or launches["conv3d_k3"] != 14 * forwards:
+    if (launches["preprocess"] != forwards or launches["conv3d_k3"] != 14 * forwards
+            or launches["group_norm"] != GN_PER_FORWARD * forwards):
         fail(f"e2e traced test: launches {launches}, expected {forwards} forwards' 1 "
-             "preprocess and 14 bf16 conv launches each")
+             f"preprocess, 14 bf16 conv and {GN_PER_FORWARD} GroupNorm launches each")
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / FRAMES
     n_ops = sum(e.count for e in ops) / FRAMES
     print(f"[trace] {traced_wall:.1f} s traced run, {time.perf_counter() - t0:.1f} s to "
@@ -1213,7 +1284,7 @@ def run_train(tag, argv, epochs, counted_steps=None):
     counted = steps if counted_steps is None else counted_steps
     want = {"preprocess": counted, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * counted,
             "conv3d_k3_bwd": K3_PER_STEP * counted, "conv3d_k3_int8": 0,
-            "deform_conv2d": 0}
+            "deform_conv2d": 0, "group_norm": 0}
     if counts != want:
         fail(f"{tag}: training launch counts {counts}, expected {want}")
     print(f"[{tag}] losses {[round(v, 4) for v in losses]}")
@@ -1514,7 +1585,8 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
     if es.replays != steps:
         fail(f"fused: {es.replays} graph replays for {steps} steps")
     captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-                "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0}
+                "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0,
+                "group_norm": 0}
     if es.launches_per_step != captured:
         fail(f"fused: the wrappers counted {es.launches_per_step} during the capture, "
              f"expected {captured}")
@@ -1686,7 +1758,8 @@ def slice_config(tmp, tag, name, root):
 # each hand kernel's symbol in a device trace -> the wrappers that launch it
 KERNEL_SYMBOLS = {"preprocess_kernel": ("preprocess", "preprocess_single"),
                   "conv3d_k3_kernel": ("conv3d_k3", "conv3d_k3_bwd"),
-                  "deform_conv2d_fwd_kernel": ("deform_conv2d",)}
+                  "deform_conv2d_fwd_kernel": ("deform_conv2d",),
+                  "group_norm_apply_kernel": ("group_norm",)}
 
 
 def cuda_trace(fn):
@@ -1957,7 +2030,8 @@ def phase_skel_mp2(tmp, dev):
          "--seed", "0", "--stop_epoch", "1"]), steps, "step")
     ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
     out, test = slice_test("mp2", cfg_path, ckpt, os.path.join(tmp, "mp2_eval"), n_test,
-                           dict(preprocess=1, conv3d_k3=K3_PER_STEP), -(-n_test // 8),
+                           dict(preprocess=1, conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD),
+                           -(-n_test // 8),
                            persons=2, extra=["--device_preprocess"])
 
     # one frame: the card's forward and multi-peak decode against the CPU's
@@ -1991,7 +2065,8 @@ def phase_skel_mp2(tmp, dev):
     live = make_predict_fn(live_asm)(xb)
     ops.reset_launch_counts()
     got = load_predict(art)(xb)
-    slice_counts("mp2 artifact", ops.launch_counts(), dict(conv3d_k3=K3_PER_STEP))
+    slice_counts("mp2 artifact", ops.launch_counts(),
+                 dict(conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD))
     (ka, sa), (kl, sl) = got[0], live[0]
     art_err = float((ka - kl).abs().max())
     if ka.shape != (8, 2, 15, 3) or art_err > SERVE_ARTIFACT_ATOL_M:
@@ -2029,7 +2104,8 @@ def phase_dcn(tmp, train_root, dev):
          "--seed", "0", "--stop_epoch", "1"]), steps, "step")
     ckpt = os.path.join(work, "checkpoints", "epoch_1.pth")
     _, test = slice_test("dcn", cfg_path, ckpt, os.path.join(tmp, "dcn_eval"), 8,
-                         dict(preprocess=1, conv3d_k3=K3_PER_STEP, deform_conv2d=2), 1,
+                         dict(preprocess=1, conv3d_k3=K3_PER_STEP, deform_conv2d=2,
+                              group_norm=GN_PER_FORWARD), 1,
                          extra=["--device_preprocess"])
     _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg, DCN_OFFSET_STD), dev)
     ds = build_dataset_from_cfg(cfg.data, "test", device_preprocess=True)
@@ -2046,8 +2122,9 @@ def phase_dcn(tmp, train_root, dev):
 def phase_complex(tmp):
     """``_phase`` (complex 64-channel cubes, B=1) on a root the port's
     generator writes: one training epoch and one more traced, tools.test
-    (traced); no kernel launches: complex cubes opt out of the card
-    preprocess and no conv of the 64/128-channel backbone is the K3 shape."""
+    (traced); of the hand kernels only GroupNorm's, in eval: complex cubes
+    opt out of the card preprocess and no conv of the 64/128-channel
+    backbone is the K3 shape."""
     from rtpose_tpu_torch.api import assemble
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import generate_synthetic_dataset
@@ -2069,7 +2146,8 @@ def phase_complex(tmp):
     _, train["trace"] = traced("phase train", lambda: port_train.main(
         argv + ["--work_dir", os.path.join(tmp, "phase_trace")]), n_train, "step")
     _, test = slice_test("phase", cfg_path, os.path.join(work, "checkpoints", "epoch_1.pth"),
-                         os.path.join(tmp, "phase_eval"), n_test, {}, n_test,
+                         os.path.join(tmp, "phase_eval"), n_test, dict(group_norm=GN_PHASE),
+                         n_test,
                          extra=["--device_preprocess"])
     wall = time.perf_counter() - t_phase
     print(f"[phase] phase wall {wall:.1f} s")
@@ -2209,14 +2287,15 @@ def phase_lidar(tmp, dev):
     ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
     forwards = -(-n_test // 8)
     _, test = slice_test("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_eval"), n_test,
-                         dict(conv3d_k3=K3_LIDAR), forwards)
+                         dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD), forwards)
     test.update(speed_windows("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_speed"),
                               n_test))
     tta_path = lidar_config(tmp, "lidar_tta", root, LIDAR_TTA_LINES)
     if not assemble(Config.fromfile(tta_path)).tta_double_flip:
         fail("lidar tta: the config's double_flip did not reach the assembly")
     _, tta = slice_test("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_eval"),
-                        n_test, dict(conv3d_k3=K3_LIDAR), 4 * forwards)
+                        n_test, dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD),
+                        4 * forwards)
     tta.update(speed_windows("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_speed"),
                              n_test))
     print(f"[lidar] eval: {test['ms_per_frame']} ms/frame at B=1 (host clock, median of "
@@ -2276,6 +2355,7 @@ def phase_lidar(tmp, dev):
         torch.cuda.synchronize()
         want_counts = (dict(conv3d_k3_int8=K3_LIDAR) if kind == "int8"
                        else dict(conv3d_k3=K3_LIDAR))
+        want_counts["group_norm"] = GN_PER_FORWARD
         slice_counts(f"lidar {kind} artifact", ops.launch_counts(), want_counts)
         (ka, sa, _), (kl, sl, _) = got[0], live[0]
         err = float((ka - kl).abs().max())
@@ -2576,13 +2656,15 @@ def phase_dp(tmp, cfg_path, refs=None):
         for r in ranks:
             r[tag]["params"] = params[0]
     per_step = {"preprocess": steps, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * steps,
-                "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0, "deform_conv2d": 0}
+                "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0, "deform_conv2d": 0,
+                "group_norm": 0}
     for r in ranks:
         dp_check_counts(f"dp train rank {r['rank']}", r["train"], steps, per_step,
                         {"all_reduce": DP_ALL_REDUCES_PER_STEP * steps,
                          "barrier": TRAIN_EPOCHS})
         captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-                    "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0}
+                    "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0,
+                    "group_norm": 0}
         two = {k: 2 * v for k, v in captured.items()}    # the warm-up step and the capture
         # the warm-up step and the capture each issue the step's collectives
         dp_check_counts(f"dp fused rank {r['rank']}", r["fused"], steps, two,
@@ -2674,7 +2756,8 @@ def phase_dp(tmp, cfg_path, refs=None):
         fail("phase 25: a rank other than 0 evaluated")
     # each rank's share of the 8 frames is one padded batch of 8: one forward
     want = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
-            "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0}
+            "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0,
+            "group_norm": GN_PER_FORWARD}
     if any(r["test"]["launches"] != want for r in ranks):
         fail(f"phase 25: tools.test launch counts {[r['test']['launches'] for r in ranks]}, "
              f"expected {want} on each rank")
@@ -3244,7 +3327,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev),
-               phase_conv_int8(dev), phase_deform(dev)]
+               phase_conv_int8(dev), phase_deform(dev), phase_group_norm(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
@@ -3273,7 +3356,7 @@ def main() -> int:
         dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
                                        train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
-    k1, k2, k3, k3_bwd, k3_int8, k_deform = kernels
+    k1, k2, k3, k3_bwd, k3_int8, k_deform, k_gn = kernels
     # the deformable head's eval: its slice's tools.test (eager, capture, replays)
     k_deform["launches"] = slices["dcn"]["test"]["launches"]["deform_conv2d"]
     # the serving path's own run: the int8 artifact through tools.test
@@ -3286,7 +3369,9 @@ def main() -> int:
                                          train["stream"]["launches"]))
     k3["launches"] = e2e["launches"]["conv3d_k3"]
     k3_bwd["launches"] = tc["conv3d_k3_bwd"]
-    for k, name in ((k1, "preprocess"), (k3, "conv3d_k3"), (k3_bwd, "conv3d_k3_bwd")):
+    k_gn["launches"] = e2e["launches"]["group_norm"]
+    for k, name in ((k1, "preprocess"), (k3, "conv3d_k3"), (k3_bwd, "conv3d_k3_bwd"),
+                    (k_gn, "group_norm")):
         k["kernel_ms"] = k["ms"]
         k["train_launches"] = tc[name]
     # the replays of the traced fused epoch, by kernel symbol in the trace
@@ -3295,7 +3380,8 @@ def main() -> int:
     k3_bwd["fused_trace_launches_with_fwd"] = ft["conv3d_k3_kernel"]
     # each slice path's own runs: the wrappers' counts, reset just before each
     names = {"preprocess": k1, "preprocess_single": k2, "conv3d_k3": k3,
-             "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8, "deform_conv2d": k_deform}
+             "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8, "deform_conv2d": k_deform,
+             "group_norm": k_gn}
     lidar = slices["lidar"]
     for name, k in names.items():
         k["path_launches"] = {}

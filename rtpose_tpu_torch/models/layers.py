@@ -27,7 +27,9 @@ so ``state_dict`` keys match ``rtpose_tpu/engine/torch_import.py``.
   ``torch.export`` can trace the module (the serving export), and reaches
   the kernels through their ``torch.ops.rtpose`` custom ops.
 * ``GroupNorm8`` — float32 statistics, eps 1e-5, one group when C < 8,
-  output cast back to the input dtype.
+  output cast back to the input dtype; no-grad bf16 calls of C a multiple
+  of 8 go to the GroupNorm kernel (``ops.group_norm``, which picks the
+  route: custom op, plain version or kernel).
 * ``SingleConv`` (order strings g/c/r/l/e), ``ResNetBlock``, ``GNConv``.
 """
 
@@ -40,7 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import conv_k3, quant
+from ..ops import conv_k3, group_norm, quant
 
 
 def canonical_dtype(dtype) -> Optional[torch.dtype]:
@@ -142,7 +144,8 @@ class TorchConv3d(nn.Module):
 
 class GroupNorm8(nn.Module):
     """GroupNorm with float32 (float64 for a float64 input) statistics and the
-    input dtype's output."""
+    input dtype's output (``ops.group_norm``: the kernel for a no-grad bf16
+    call it takes, the plain version for the rest)."""
 
     def __init__(self, channels: int, num_groups: int = 8, eps: float = 1e-5):
         super().__init__()
@@ -152,13 +155,7 @@ class GroupNorm8(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C = x.shape[0], x.shape[-1]
-        dt = torch.promote_types(x.dtype, torch.float32)   # float64 stays float64
-        xg = x.to(dt).reshape(B, -1, self.groups, C // self.groups)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-        out = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (out * self.weight.to(dt) + self.bias.to(dt)).to(x.dtype)
+        return group_norm.group_norm(x, self.weight, self.bias, self.groups, self.eps)
 
 
 class SingleConv(nn.Sequential):

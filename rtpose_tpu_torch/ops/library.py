@@ -10,7 +10,9 @@ serving artifact (``export.py``) reaches the kernels through these ops:
   on ``conv_k3_int8.prepare``d weights;
 * ``rtpose::conv3d_k3_grad_input(g, wr)`` — K3's grad-input launch on
   ``conv_k3.prepare_flipped`` weights (no artifact holds it: the wrappers
-  launch through the ops while a dispatch mode is active, ``conv_k3``).
+  launch through the ops while a dispatch mode is active, ``conv_k3``);
+* ``rtpose::group_norm(x, weight, bias, groups, eps)`` — the GroupNorm
+  kernel (``group_norm.launch``) on a bf16 (B, ..., C) input.
 
 Each has a fake (meta) implementation for tracing and one for the CPU and
 CUDA that is the kernel's wrapper, called with the mode off: the plain
@@ -33,7 +35,7 @@ from typing import List, Optional
 import torch
 from torch.utils.flop_counter import flop_registry, register_flop_formula
 
-from . import conv_k3, conv_k3_int8, preprocess
+from . import conv_k3, conv_k3_int8, group_norm, preprocess
 
 
 _DEVICES = ("cpu", "cuda")
@@ -84,6 +86,17 @@ def conv3d_k3_grad_input_op(g: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
 @conv3d_k3_grad_input_op.register_fake
 def _(g, wr):
     return torch.empty_like(g, dtype=torch.bfloat16)
+
+
+@torch.library.custom_op("rtpose::group_norm", mutates_args=(), device_types=_DEVICES)
+def group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+                  eps: float) -> torch.Tensor:
+    return group_norm.launch(x, weight, bias, groups, eps)
+
+
+@group_norm_op.register_fake
+def _(x, weight, bias, groups, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _k3_flops(x_shape, *args, out_shape=None, **kwargs) -> int:

@@ -149,7 +149,7 @@ def test_conv_backward_matches_plain(dev, shape, with_bias):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 1,
                                    "conv3d_k3_bwd": 1, "conv3d_k3_int8": 0,
-                                   "deform_conv2d": 0}
+                                   "deform_conv2d": 0, "group_norm": 0}
     want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
     torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want_gx.float().abs().max().item())
@@ -600,6 +600,131 @@ def test_voxel_to_world_on_the_card_equals_the_tensor_formula(dev):
     assert torch.equal(_voxel_to_world(vox, s), vox * scale + offset)
 
 
+# ---------------------------------------------------------------- GroupNorm
+
+# the flagship trunk's GroupNorm inputs: (Z, Y, X), C; and the head's
+# shared_conv width at the full grid
+GN_SHAPES = [((16, 64, 160), 32), ((8, 32, 80), 32), ((4, 16, 40), 64), ((4, 16, 40), 32),
+             ((2, 8, 20), 64), ((16, 64, 160), 128)]
+
+
+def _gn_case(dev, shape, seed=0):
+    from rtpose_tpu_torch.models import GroupNorm8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+    m = GroupNorm8(shape[-1]).to(dev)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(shape[-1], generator=g, device=dev))
+        m.bias.copy_(torch.randn(shape[-1], generator=g, device=dev))
+    return x, m
+
+
+def _bf16_ulps(got, want):
+    """The largest |got - want| in bf16 ulps of ``want`` (the spacing at
+    |want|, at least at 2^-8 of the largest |want|)."""
+    w = want.float().abs()
+    w = w.clamp_min(w.max().item() * 2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("zyx,C", GN_SHAPES)
+def test_group_norm_kernel_matches_plain(dev, B, zyx, C):
+    """The kernel against the plain bf16 route: one bf16 ulp (the two round
+    float32 values a few float32 ulps apart) plus 2^-16 of the output range
+    for the cancellation in x * scale + shift near zero; two launches
+    bit-equal; one launch counted a call."""
+    from rtpose_tpu_torch.ops import group_norm as gn
+
+    x, m = _gn_case(dev, (B, *zyx, C))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        assert gn.kernel_route(x, m.weight, m.bias, m.groups)
+        got, again = m(x), m(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["group_norm"] == 2
+    assert torch.equal(got, again)
+    want = gn.group_norm_reference(x, m.weight, m.bias, m.groups, m.eps)
+    print(f"group_norm {(B, *zyx, C)}: {_bf16_ulps(got, want)} bf16 ulps")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2.0 ** -16 * want.float().abs().max().item())
+
+
+def test_group_norm_kernel_graph_replay_equals_eager(dev):
+    from rtpose_tpu_torch.ops import group_norm as gn
+
+    x, m = _gn_case(dev, (8, 8, 32, 80, 32), seed=1)
+    with torch.no_grad():
+        want = m(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            m(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ops.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            out = m(x)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+    assert ops.launch_counts()["group_norm"] == 1    # the capture; replays pass no wrapper
+    assert gn.kernel_route(x, m.weight, m.bias, m.groups) is False   # grad mode back on
+
+
+@pytest.mark.parametrize("shape", [(0, 4, 5, 6, 32), (2, 0, 5, 6, 32)])
+def test_group_norm_kernel_zero_size(dev, shape):
+    x, m = _gn_case(dev, (1, 1, 1, 1, 32))
+    x = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = m(x)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert ops.launch_counts()["group_norm"] == 0
+
+
+@pytest.mark.parametrize("layout", ["strided", "misaligned"])
+def test_group_norm_kernel_copies_what_it_cannot_read(dev, layout):
+    """A non-contiguous or not 16-byte aligned input is copied first: the
+    answer is the contiguous input's, bit for bit."""
+    x, m = _gn_case(dev, (2, 4, 16, 40, 64), seed=2)
+    if layout == "strided":
+        wide = torch.zeros((*x.shape[:-1], 2 * x.shape[-1]), dtype=x.dtype, device=dev)
+        wide[..., ::2] = x
+        xv = wide[..., ::2]
+    else:
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        xv = flat[1:].view(x.shape)
+        xv.copy_(x)
+        assert xv.data_ptr() % 16
+    with torch.no_grad():
+        assert torch.equal(m(xv), m(x))
+
+
+def test_group_norm_kernel_counts_48_a_trunk_forward_and_none_in_training(dev):
+    """The trunk (the flagship backbone, 48 GroupNorms) under ``no_grad``
+    launches the kernel once a GroupNorm; in training, and on float32
+    calls, the plain version runs and nothing is counted."""
+    from rtpose_tpu_torch.models import build_detector, init_weights
+
+    model = init_weights(build_detector(SMALL_MODEL), torch.Generator().manual_seed(1)).to(dev)
+    x = torch.rand((2, *SMALL_GRID, 32), device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        feat = model.eval().extract_feat(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["group_norm"] == 48
+    ops.reset_launch_counts()
+    model.train().extract_feat(x).float().sum().backward()
+    with torch.no_grad():
+        model.pose_head.shared_conv[0](feat.float())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["group_norm"] == 0
+
+
 # ------------------------------------------------------------------ int8 K3
 
 def _int8_case(dev, shape, with_bias, seed=6):
@@ -955,7 +1080,8 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
     within 5 % of their range and the regression within 5 % of its largest
     magnitude over the whole volume (``chip_smoke.py``'s ``E2E_FRAC``); the
     forward launches the conv kernel at its six 32 -> 32 convs (stages 2-4,
-    the half-resolution branch) and no other kernel."""
+    the half-resolution branch), the GroupNorm kernel at its 48 GroupNorms,
+    and no other kernel."""
     gpu, cpu, batch = _lidar_models(dev)
     with torch.inference_mode():
         want = cpu(batch)[0]
@@ -964,7 +1090,8 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
         torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 6,
-                      "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0}
+                      "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0,
+                      "group_norm": 48}
     span = (want["hm"].max() - want["hm"].min()).item()
     torch.testing.assert_close(got["hm"].float().cpu(), want["hm"], rtol=0, atol=0.05 * span)
     reg_max = want["reg"].abs().max().item()
