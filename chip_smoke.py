@@ -263,9 +263,9 @@ K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
 # GroupNorms of an eval forward (bf16, no grad: the GroupNorm kernel's); none
 # in training, where the plain version keeps the gradient.  The flagship
 # trunk's 48 (the LiDAR backbone's too); ``_phase`` adds its head's
-# shared_conv GroupNorm twice (the heatmap and the 5^3 patches)
+# shared_conv GroupNorm, once (the sparse path applies it densely)
 GN_PER_FORWARD = 48
-GN_PHASE = 50
+GN_PHASE = 49
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
 TRACE_EDGE_S = 0.1  # idle card between a traced epoch and its trace window's edges
@@ -950,7 +950,8 @@ def phase_serving(tmp, cfg_path, cfg, ckpt, dev):
         hm_c = cpu.pose_head(feat, branch="hm")[0]["hm"]
         _, Z, Y, X, _ = hm_c.shape
         p = p.cpu()
-        reg_c = cpu._reg_patches(feat, p // (Y * X), (p % (Y * X)) // X, p % X, (Z, Y, X))
+        reg_c = cpu._reg_patches(cpu.shared(feat), p // (Y * X), (p % (Y * X)) // X, p % X,
+                                 (Z, Y, X))
     t_cpu = time.perf_counter() - t0
     hm_g, reg_g = hm_g.float().cpu(), reg_g.float().cpu()
     span1 = (hm_c.max() - hm_c.min()).item()
@@ -1194,7 +1195,7 @@ def phase_cpu_compare(cfg, ckpt, detections, dev):
         hm_c = cpu.pose_head(feat_c, branch="hm")[0]["hm"]
         B, Z, Y, X, _ = hm_c.shape
         p = peak_g.cpu()
-        reg_c = cpu._reg_patches(feat_c, p // (Y * X), (p % (Y * X)) // X, p % X,
+        reg_c = cpu._reg_patches(cpu.shared(feat_c), p // (Y * X), (p % (Y * X)) // X, p % X,
                                  (Z, Y, X))
         kp_c = decode_pose_sparse(hm_c, reg_c, p, spec)[0]
     hm_g, reg_g, kp_g = hm_g.float().cpu(), reg_g.float().cpu(), kp_g.cpu()

@@ -7,6 +7,10 @@ of the batches with ``torch.cuda.synchronize()`` at the window edges, and
 hand the dict to ``dataset.evaluation``.  Under a process group each rank
 evaluates its shard of the frames and the detections of every rank are
 gathered and merged by key (``rtpose_tpu/engine/evaluator.py:134-137``).
+
+``counts()``: ``h2d_bytes``, the input bytes ``device_prefetch`` copied to
+the card since the last ``reset()`` (none on the CPU, where nothing is
+copied).
 """
 
 from __future__ import annotations
@@ -25,6 +29,20 @@ import torch
 from .. import parallel
 from ..core.decode import post_process_pose, post_process_pose_multi
 from ..utils import trace
+
+_COUNTS = dict(h2d_bytes=0)
+_COUNTS_LOCK = threading.Lock()     # the prefetch workers add, other threads read
+
+
+def counts() -> dict:
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset() -> None:
+    with _COUNTS_LOCK:
+        for k in _COUNTS:
+            _COUNTS[k] = 0
 
 
 def device_prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[dict]:
@@ -63,6 +81,8 @@ def device_prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[di
                                 dev[k] = pinned.to(device, non_blocking=True)
                         event = torch.cuda.Event()
                         event.record(copy_stream)
+                    with _COUNTS_LOCK:
+                        _COUNTS["h2d_bytes"] += sum(t.nbytes for t in dev.values())
                 else:
                     dev = {k: torch.from_numpy(np.ascontiguousarray(v))
                            for k, v in hb.items() if k not in ("meta", "valid")}

@@ -4,7 +4,8 @@ Counterpart of ``rtpose_tpu/models/center_head.py`` (reference
 ``det3d/models/pose_heads/center_head.py``):
 
 * optional shared conv (GN8 + 3x3x3 conv + ReLU) when the backbone output
-  width differs from ``share_conv_channel``;
+  width differs from ``share_conv_channel`` (``shared``), then the task heads
+  (``heads``); ``forward`` is the two in turn;
 * per-task ``SepHead``: each named head ('reg', 'hm', ...) is a conv tower —
   (num_conv - 1) x [3x3x3 conv(head_conv) + ReLU] then a final 3x3x3 conv
   to the target width, computed in ``final_dtype`` (float32 by default);
@@ -139,13 +140,23 @@ class CenterHead(nn.Module):
         for t in self.tasks:
             t.set_final_dtype(final_dtype)
 
-    def forward(self, x: torch.Tensor, branch: Optional[str] = None,
-                inner_mask: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
-        """Dense heads, or a single ``branch``; ``inner_mask`` marks in-volume
-        positions of small sparse-inference patches."""
-        if self.shared_conv is not None:
-            x = self.shared_conv(x)
+    def shared(self, x: torch.Tensor) -> torch.Tensor:
+        """The shared conv over the whole grid; the identity without one.  Its
+        3x3x3 conv and GroupNorm need the whole volume, so the sparse paths
+        apply it densely before they cut patches."""
+        return x if self.shared_conv is None else self.shared_conv(x)
+
+    def heads(self, x: torch.Tensor, branch: Optional[str] = None,
+              inner_mask: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+        """The task heads on an already-shared feature: every head, or a
+        single ``branch``; ``inner_mask`` marks the in-volume positions of
+        the sparse path's patches."""
         return [t(x, branch=branch, inner_mask=inner_mask) for t in self.tasks]
+
+    def forward(self, x: torch.Tensor, branch: Optional[str] = None
+                ) -> List[Dict[str, torch.Tensor]]:
+        """Dense heads, or a single ``branch``."""
+        return self.heads(self.shared(x), branch)
 
     def loss(self, example: Dict[str, list], preds_dicts: List[Dict[str, torch.Tensor]],
              num_pos: Optional[torch.Tensor] = None) -> Dict[str, list]:

@@ -4,6 +4,19 @@ Counterpart of ``rtpose_tpu/models/detectors.py::RadarPoseNet`` (reference
 ``radar_pose_net.py:10-46``): identity reader over the dense radar cube,
 HRNet3D backbone, CenterHead.  Inputs are (B, Z, Y, X, C) channels-last
 cubes, heatmaps come back (B, Z, Y, X, C) — the JAX package's layouts.
+
+The sparse paths (``predict_sparse``, ``forward_sparse_train``) apply the
+head's shared conv once, densely, to the trunk's output, and cut the
+regression's 5^3 patches from that shared feature.  Here the port leaves
+the JAX package, which sends each patch through the shared conv (a 3x3x3
+conv and a GroupNorm that need the whole volume), and follows its dense
+forward.
+
+``counts()`` holds what the Python calls asked (a captured call counts
+once, the replays of its CUDA graph do not): ``shared_calls`` and
+``shared_voxels``, the shared conv's calls and the voxels it ran over
+(B·Z·Y·X a call), and ``reg_patches``, the 5^3 patches the regression
+tower ran on.
 """
 
 from __future__ import annotations
@@ -21,6 +34,19 @@ from .dcn_head import Conv2dNHWC, DCNSepHead, DeformConv2d, FeatureAdaption, Lay
 from .layers import GroupNorm8, TorchConv3d
 from .necks import BatchNormNHWC
 from .roi_head import RoIHead
+
+
+_COUNTS = dict(shared_calls=0, shared_voxels=0, reg_patches=0)
+
+
+def counts() -> dict:
+    """What the sparse and dense forwards asked since the last ``reset``."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
 def build_submodule(cfg, registry, extra: dict | None = None):
@@ -58,13 +84,23 @@ class RadarPoseNet(nn.Module):
         x = self.backbone(self.reader(rdr_tensor))
         return x if self.neck is None else self.neck(x)
 
+    def shared(self, feat: torch.Tensor) -> torch.Tensor:
+        """The head's shared conv over the whole grid (span
+        ``predict.shared``, counted); the identity, unrecorded, without one."""
+        if self.pose_head.shared_conv is None:
+            return feat
+        with trace.span("predict.shared"):
+            _COUNTS["shared_calls"] += 1
+            _COUNTS["shared_voxels"] += feat.shape[:-1].numel()
+            return self.pose_head.shared(feat)
+
     def forward(self, rdr_tensor: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         """Dense forward: every head at every voxel; spans ``predict.backbone``
-        and ``predict.head``."""
+        and ``predict.head`` (around ``predict.shared``)."""
         with trace.span("predict.backbone"):
             feat = self.extract_feat(rdr_tensor)
         with trace.span("predict.head"):
-            return self.pose_head(feat)
+            return self.pose_head.heads(self.shared(feat))
 
     def forward_sparse_train(self, rdr_tensor: torch.Tensor, ind: torch.Tensor):
         """Training forward with the reg tower evaluated only at the target
@@ -73,8 +109,8 @@ class RadarPoseNet(nn.Module):
 
         Returns (hm (B, Z, Y, X, C) logits, reg_at_ind (B, M, D)).
         """
-        feat = self.extract_feat(rdr_tensor)
-        hm = self.pose_head(feat, branch="hm")[0]["hm"]
+        feat = self.shared(self.extract_feat(rdr_tensor))
+        hm = self.pose_head.heads(feat, branch="hm")[0]["hm"]
         B, Z, Y, X, _ = hm.shape
         M = ind.shape[1]
         flat = ind.reshape(B * M).long()
@@ -84,14 +120,15 @@ class RadarPoseNet(nn.Module):
         return hm, reg.reshape(B, M, -1)
 
     def _reg_patches(self, feat: torch.Tensor, z, y, x, zyx) -> torch.Tensor:
-        """Reg-tower values at voxel coords (B,) via 5^3 receptive-field
-        patches: the head's two 3x3x3 convs see exactly the 5^3 cube around
-        a voxel, with zeros outside the volume (detectors.py:90-144)."""
+        """Reg-tower values at voxel coords (B,) of the shared feature
+        ``feat`` via 5^3 receptive-field patches: the tower's two 3x3x3 convs
+        see exactly the 5^3 cube around a voxel, with zeros outside the
+        volume (detectors.py:90-144)."""
         Z, Y, X = zyx
         B = feat.shape[0]
         if min(Z, Y, X) < 5:
             # grid smaller than the receptive field: dense reg + gather
-            reg = self.pose_head(feat, branch="reg")[0]["reg"]
+            reg = self.pose_head.heads(feat, branch="reg")[0]["reg"]
             flat = (z * Y + y) * X + x
             dense = reg.reshape(B, -1, reg.shape[-1])
             return dense[torch.arange(B, device=feat.device), flat]
@@ -103,8 +140,9 @@ class RadarPoseNet(nn.Module):
                        px[:, None, None, :]]                     # (B, 5, 5, 5, C)
         mask = (mz[:, :, None, None] & my[:, None, :, None]
                 & mx[:, None, None, :])[..., None].to(feat.dtype)
-        reg_p = self.pose_head(patches * mask, branch="reg",
-                               inner_mask=mask)[0]["reg"]
+        _COUNTS["reg_patches"] += B
+        reg_p = self.pose_head.heads(patches * mask, branch="reg",
+                                     inner_mask=mask)[0]["reg"]
         return reg_p[:, 2, 2, 2, :]
 
     def predict_sparse(self, rdr_tensor: torch.Tensor):
@@ -115,8 +153,9 @@ class RadarPoseNet(nn.Module):
         """
         with trace.span("predict.backbone"):
             feat = self.extract_feat(rdr_tensor)
+        feat = self.shared(feat)
         with trace.span("predict.hm"):
-            hm = self.pose_head(feat, branch="hm")[0]["hm"]
+            hm = self.pose_head.heads(feat, branch="hm")[0]["hm"]
             B, Z, Y, X, C = hm.shape
             flat = flat_argmax(hm.reshape(B, -1, C)[..., 0])        # pelvis class
             z = flat // (Y * X)

@@ -241,17 +241,20 @@ def random_input(rng: np.random.Generator, shape, device, dtype=torch.float32) -
 def infer_calls(model, x: torch.Tensor) -> Dict[str, Callable]:
     """The inference segments' callables: each segment on the previous ones'
     outputs, computed once here (call under the context the segments run
-    in, and under ``torch.inference_mode``): the feature map, the heatmap,
-    and the peak indices the argmax gives at the heatmap's grid."""
+    in, and under ``torch.inference_mode``): the feature map, the head's
+    shared feature, the heatmap, and the peak indices the argmax gives at
+    the heatmap's grid.  The hm segment holds the head's shared conv (none
+    in the flagship); the reg segment reads the shared feature."""
     feat = model.extract_feat(x)
-    hm = model.pose_head(feat, branch="hm")[0]["hm"]
+    shared = model.shared(feat)
+    hm = model.pose_head.heads(shared, branch="hm")[0]["hm"]
     B, Z, Y, X, C = hm.shape
     flat = flat_argmax(hm.reshape(B, -1, C)[..., 0])
     z, y, xx = flat // (Y * X), (flat % (Y * X)) // X, flat % X
     return dict(backbone=lambda: model.extract_feat(x),
                 hm=lambda: model.pose_head(feat, branch="hm")[0]["hm"],
                 argmax=lambda: flat_argmax(hm.reshape(B, -1, C)[..., 0]),
-                reg=lambda: model._reg_patches(feat, z, y, xx, (Z, Y, X)),
+                reg=lambda: model._reg_patches(shared, z, y, xx, (Z, Y, X)),
                 full=lambda: model.predict_sparse(x))
 
 

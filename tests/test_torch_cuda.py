@@ -584,6 +584,60 @@ def test_eval_graph_of_the_deformable_head_replays_without_counting(dev):
         _equal(a, b)
 
 
+def test_phase_eval_graph_replays_leave_the_counts(dev):
+    """The complex-cube model (``_phase``) at its published widths and grid,
+    B=1, through ``run_eval`` on host float32 ``rdr_tensor`` frames: the
+    first frame eager, the second captured, the rest replayed, each frame's
+    answer the eager step's.  The shared conv and the patches are counted
+    on the eager call, the capture's warm-up and the capture, not on a
+    replay; the graph launches no K1, no K3 and 49 GroupNorms a forward (the
+    trunk's 48 and the shared conv's one: it runs once, densely); the
+    prefetch counts every frame's bytes."""
+    import numpy as np
+
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.engine import evaluator, make_eval_step, run_eval
+    from rtpose_tpu_torch.models import detectors, init_weights
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "cruw_pose", "hr3d_one_hm_doppler_phase.py")
+    asm = assemble(Config.fromfile(path))
+    model = init_weights(asm.model, torch.Generator().manual_seed(3)).to(dev).eval()
+    step = make_eval_step(model, asm.decode_spec, sparse=asm.sparse_head)
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randn((6, 1, *asm.input_shape_zyxc), generator=g).numpy()
+
+    class Loader:
+        def __len__(self):
+            return len(frames)
+
+        def __iter__(self):
+            for i, f in enumerate(frames):
+                yield {"rdr_tensor": f, "meta": [dict(seq="0", frame=str(i), rdr_frame=str(i))],
+                       "valid": np.int32(1)}
+
+    detectors.reset()
+    evaluator.reset()
+    ops.reset_launch_counts()
+    got, _ = run_eval(step, Loader(), asm.decode_spec, device=dev)
+    torch.cuda.synchronize()
+    assert (step.eager, step.captures, step.replays) == (1, 1, len(frames) - 2)
+    Z, Y, X, _ = asm.input_shape_zyxc
+    # the eager call, the capture's warm-up and the capture
+    assert detectors.counts() == dict(shared_calls=3, shared_voxels=3 * Z * Y * X,
+                                      reg_patches=3)
+    assert ops.launch_counts()["group_norm"] == 3 * 49
+    per = step.counts()["launches_per_replay"]
+    assert per["group_norm"] == 49
+    assert per["preprocess"] == per["preprocess_single"] == per["conv3d_k3"] == 0
+    assert evaluator.counts()["h2d_bytes"] == frames.nbytes
+    want, _ = run_eval(step.step, Loader(), asm.decode_spec, device=dev)
+    assert sorted(got) == sorted(want) and len(got) == len(frames)
+    for k in want:
+        assert got[k] == want[k]
+
+
 def test_voxel_to_world_on_the_card_equals_the_tensor_formula(dev):
     """On the card too, the Python-float scale and offset give the float32
     values of the float32 tensor formula, bit for bit."""

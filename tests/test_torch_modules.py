@@ -121,15 +121,16 @@ def test_center_head_dense_branch_and_patch():
     for k in ("hm", "reg"):
         _close(got[k], want[k], 1e-4)
     assert got["hm"].dtype == torch.float32
-    # a 5^3 patch with an in-volume mask (the sparse-inference input)
+    # a 5^3 patch with an in-volume mask (the sparse-inference input, which
+    # the task heads take: this head has no shared conv)
     patch = _x((2, 5, 5, 5, 128), seed=6)
     mask = np.ones((2, 5, 5, 5, 1), np.float32)
     mask[:, :2] = 0.0
     want = jh.apply(params, jnp.asarray(patch), branch="reg", patch=True,
                     inner_mask=jnp.asarray(mask))[0]["reg"]
     with torch.no_grad():
-        got = th(torch.from_numpy(patch), branch="reg",
-                 inner_mask=torch.from_numpy(mask))[0]["reg"]
+        got = th.heads(torch.from_numpy(patch), branch="reg",
+                       inner_mask=torch.from_numpy(mask))[0]["reg"]
     _close(got, want, 1e-4)
 
 

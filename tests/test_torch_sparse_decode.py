@@ -1,21 +1,30 @@
 """Sparse predict and decode: the port's ``predict_sparse`` equals its dense
 forward at the peak (including peaks on the volume's faces and corners),
-and the decode / post-processing / metric functions equal rtpose_tpu's on
-the same arrays, ties included.
+with and without the head's shared conv, and the decode / post-processing /
+metric functions equal rtpose_tpu's on the same arrays, ties included.
+
+With a shared conv (``_phase``'s head) the port's sparse paths are held to
+JAX's **dense** forward: the JAX package's sparse paths send each 5^3 patch
+through the shared conv, which needs the whole volume, and the port leaves
+that answer (``models/detectors.py``).
 
 Tolerances: sparse vs dense within the port, 1e-5 of max|reg| (the patch
-and the full volume sum the same products, in float32); decode against
-JAX, 1e-6 m / 1e-6 on scores (float32 rounding of the same formulas);
-labels and indices exact.
+and the full volume sum the same products, in float32); the port against
+JAX's forward, 1e-3 of max|reg| (the frameworks sum the convs in other
+orders, ``tests/test_torch_slice.py``); decode against JAX, 1e-6 m / 1e-6
+on scores (float32 rounding of the same formulas); labels and indices exact.
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from rtpose_tpu.core import decode as jdec
 from rtpose_tpu.core import metrics as jmet
+from rtpose_tpu.models import build_detector as jax_build_detector
+from rtpose_tpu_torch.engine import state_dict_from_jax
 from rtpose_tpu_torch.core import decode as tdec
 from rtpose_tpu_torch.core import metrics as tmet
 from rtpose_tpu_torch.models import build_detector, init_weights
@@ -30,11 +39,14 @@ CFG = dict(type="RadarPoseNet", reader=dict(type="RadarFeatureNet"),
                           tasks=[dict(num_class=1, class_names=["Pelvis"])],
                           in_channels=128, share_conv_channel=128,
                           common_heads={"reg": (45, 2)}))
+# the head with a shared conv (GroupNorm, 3x3x3 128 -> 64, ReLU), as _phase's
+SHARED_CFG = dict(CFG, pose_head=dict(CFG["pose_head"], share_conv_channel=64))
 
 
-@pytest.fixture(scope="module")
-def model():
-    return init_weights(build_detector(CFG), torch.Generator().manual_seed(0)).eval()
+@pytest.fixture(scope="module", params=["flagship", "shared_conv"])
+def model(request):
+    cfg = CFG if request.param == "flagship" else SHARED_CFG
+    return init_weights(build_detector(cfg), torch.Generator().manual_seed(0)).eval()
 
 
 def test_predict_sparse_equals_dense(model):
@@ -65,8 +77,8 @@ def test_reg_patches_at_faces_and_corners(model):
     pts = [(0, 0, 0), (Z - 1, Y - 1, X - 1), (0, Y - 1, 3), (1, 0, X - 2),
            (Z - 2, 7, 0), (4, 8, 16), (2, 1, 30)]
     with torch.no_grad():
-        feat = model.extract_feat(x)
-        dense = model.pose_head(feat, branch="reg")[0]["reg"][0]
+        feat = model.shared(model.extract_feat(x))
+        dense = model.pose_head.heads(feat, branch="reg")[0]["reg"][0]
         n = len(pts)
         z, y, xx = (torch.tensor(c) for c in zip(*pts))
         got = model._reg_patches(feat.expand(n, -1, -1, -1, -1), z, y, xx, GRID)
@@ -83,6 +95,43 @@ def test_small_grid_takes_the_dense_path(model):
         _, reg_at_peak, peak = model.predict_sparse(x)
     want = dense["reg"].reshape(2, -1, 45)[torch.arange(2), peak]
     torch.testing.assert_close(reg_at_peak, want, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def jax_shared():
+    """The JAX detector with a shared conv and its flax weights, and the
+    port's with the same weights."""
+    jmodel = jax_build_detector(SHARED_CFG)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, *GRID, 32), jnp.float32))
+    port = build_detector(SHARED_CFG)
+    port.load_state_dict(state_dict_from_jax(params))
+    return jmodel, params, port.eval()
+
+
+def test_shared_conv_sparse_paths_follow_jax_dense_forward(jax_shared):
+    """``predict_sparse``'s and ``forward_sparse_train``'s regression at the
+    peak and at face and corner targets against JAX's dense forward
+    gathered there; JAX's own sparse predict misses it (the recorded
+    divergence)."""
+    jmodel, params, port = jax_shared
+    Z, Y, X = GRID
+    x = np.random.default_rng(10).normal(size=(1, *GRID, 32)).astype(np.float32)
+    preds = jmodel.apply(params, jnp.asarray(x))[0]
+    jhm = np.asarray(preds["hm"])
+    jreg = np.asarray(preds["reg"]).reshape(1, -1, 45)
+    scale = np.abs(jreg).max()
+    pts = [(0, 0, 0), (Z - 1, Y - 1, X - 1), (0, Y - 1, 3), (4, 8, 16)]
+    ind = torch.tensor([[(z * Y + y) * X + xx for z, y, xx in pts]])
+    with torch.no_grad():
+        hm, reg_at_peak, peak = port.predict_sparse(torch.from_numpy(x))
+        hm_t, reg_at_ind = port.forward_sparse_train(torch.from_numpy(x), ind)
+    np.testing.assert_allclose(hm.numpy(), jhm, atol=1e-3 * np.abs(jhm).max())
+    np.testing.assert_allclose(hm_t.numpy(), jhm, atol=1e-3 * np.abs(jhm).max())
+    assert int(peak[0]) == int(jhm.reshape(-1).argmax())
+    np.testing.assert_allclose(reg_at_peak.numpy(), jreg[:, int(peak[0])], atol=1e-3 * scale)
+    np.testing.assert_allclose(reg_at_ind.numpy(), jreg[:, ind[0].numpy()], atol=1e-3 * scale)
+    _, jsparse, _ = jmodel.apply(params, jnp.asarray(x), method="predict_sparse")
+    assert np.abs(np.asarray(jsparse) - jreg[:, int(peak[0])]).max() > 1e-2 * scale
 
 
 def _hm_with_ties(B, C, rng):

@@ -3,10 +3,14 @@ flag check and record nothing; on they record each span with its thread
 on the profiler's clock, in a bounded buffer; the eval loop, the dense
 forward with its deformable head and the trainer record their layers'
 spans; ``start_trace`` turns them on as named ranges.  The deformable
-conv's counters (``ops.deform_conv.counts``) follow its shapes."""
+conv's counters (``ops.deform_conv.counts``) follow its shapes.  The
+complex-cube model's shared conv records ``predict.shared`` and counts its
+calls and voxels, and the regression's patches, in ``models.detectors.
+counts``; ``device_prefetch`` counts the bytes it copies to the card."""
 
 import copy
 import json
+import os
 import threading
 
 import numpy as np
@@ -14,17 +18,22 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from rtpose_tpu_torch.api import assemble
+from rtpose_tpu_torch.config import Config
 from rtpose_tpu_torch.core.decode import DecodeSpec
 from rtpose_tpu_torch.core.targets import PoseTargetSpec
 from rtpose_tpu_torch.data import BatchLoader, DeviceCachedLoader
 from rtpose_tpu_torch.engine import (Trainer, create_train_state, make_eval_step,
                                      make_train_step, run_eval)
+from rtpose_tpu_torch.engine import evaluator
 from rtpose_tpu_torch.engine.hooks import start_trace, stop_trace
-from rtpose_tpu_torch.models import build_detector, init_weights
+from rtpose_tpu_torch.models import build_detector, detectors, init_weights
 from rtpose_tpu_torch.ops import deform_conv
 from rtpose_tpu_torch.solver import AdamOneCycle, make_one_cycle_fns
 from rtpose_tpu_torch.utils import trace
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASE = os.path.join(REPO, "configs", "cruw_pose", "hr3d_one_hm_doppler_phase.py")
 CPU = torch.device("cpu")
 GRID = (8, 8, 16)           # >= 5 per axis: the sparse path takes 5^3 patches
 MODEL_CFG = dict(
@@ -264,3 +273,75 @@ def test_trainer_records_its_spans(tmp_path, fused):
         # the last wait of an epoch finds the loader's end
         epoch = (["train.next_batch", "train.step"] + per_step) * 2 + ["train.next_batch"]
         assert names == epoch * 2
+
+
+@pytest.fixture(scope="module")
+def phase_model():
+    """The complex-cube model (feat64 trunk, 64 input channels, the head's
+    shared conv 256 -> 128) with seeded weights; its convs take any grid."""
+    model = assemble(Config.fromfile(PHASE)).model
+    return init_weights(model, torch.Generator().manual_seed(0)).eval()
+
+
+def _phase_cube(B=2):
+    return torch.from_numpy(np.random.default_rng(0).normal(
+        size=(B, *GRID, 64)).astype(np.float32))
+
+
+def test_the_sparse_predict_records_the_shared_conv_before_the_heatmap(phase_model):
+    """``predict.shared`` once an eager call, between the backbone and the
+    heatmap; the shared conv over B·Z·Y·X voxels and B patches counted a
+    call, spans on or off; with spans off nothing is recorded."""
+    B, (Z, Y, X) = 2, GRID
+    detectors.reset()
+    trace.enable()
+    with torch.no_grad():
+        for _ in range(2):
+            phase_model.predict_sparse(_phase_cube(B))
+    assert _names(trace.take()) == ["predict.backbone", "predict.shared", "predict.hm",
+                                    "predict.reg"] * 2
+    assert detectors.counts() == dict(shared_calls=2, shared_voxels=2 * B * Z * Y * X,
+                                      reg_patches=2 * B)
+    trace.disable()
+    with torch.no_grad():
+        phase_model.predict_sparse(_phase_cube(B))
+    assert trace.take() == []
+    assert detectors.counts()["shared_calls"] == 3
+
+
+def test_the_training_and_dense_forwards_record_the_shared_conv(phase_model):
+    """The sparse training forward applies the shared conv once (its B·M
+    patches counted), the dense forward once inside ``predict.head``."""
+    B, (Z, Y, X) = 2, GRID
+    ind = torch.tensor([[0, Z * Y * X - 1, 37], [5, 6, 7]])
+    detectors.reset()
+    trace.enable()
+    with torch.no_grad():
+        phase_model.forward_sparse_train(_phase_cube(B), ind)
+        assert _names(trace.take()) == ["predict.shared"]
+        assert detectors.counts() == dict(shared_calls=1, shared_voxels=B * Z * Y * X,
+                                          reg_patches=B * 3)
+        phase_model(_phase_cube(B))
+    assert _names(trace.take()) == ["predict.backbone", "predict.head", "predict.shared"]
+    assert detectors.counts() == dict(shared_calls=2, shared_voxels=2 * B * Z * Y * X,
+                                      reg_patches=B * 3)
+
+
+def test_the_flagship_records_no_shared_conv():
+    """A head without a shared conv: no ``predict.shared`` and nothing
+    shared counted; the patches still are."""
+    model = _model().eval()
+    detectors.reset()
+    trace.enable()
+    with torch.no_grad():
+        model.predict_sparse(torch.randn((3, *GRID, 1)))
+    assert _names(trace.take()) == ["predict.backbone", "predict.hm", "predict.reg"]
+    assert detectors.counts() == dict(shared_calls=0, shared_voxels=0, reg_patches=3)
+
+
+def test_device_prefetch_copies_and_counts_nothing_on_the_cpu():
+    model = _model().eval()
+    spec = DecodeSpec(**SPEC_KW)
+    evaluator.reset()
+    run_eval(make_eval_step(model, spec, sparse=True), _Frames(2), spec, device=CPU)
+    assert evaluator.counts() == dict(h2d_bytes=0)
