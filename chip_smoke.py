@@ -25,6 +25,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      2^-16 of the range), two launches bit-identical; device time beside the
      plain route's and its byte bound (6 bytes an element), each shape and
      the trunk's 48 calls summed;
+  4d. the trilinear resize kernel (``ops.interpolate``) at the 13 resizes of
+     a forward of the flagship trunk and of ``_phase``'s, at B=1 and B=8
+     (the fuse's with their addend, the final fuse's into their slices of
+     the concat): against ``F.interpolate`` (one bf16 ulp, the share of
+     bit-equal elements printed), two launches bit-identical; device time of
+     the 13 launches beside the plain route's (permute, ``F.interpolate``,
+     copy, add or concat) and ``F.interpolate``'s alone, and the byte bound
+     (input, addend and output once);
   5. the flagship eval path end to end: a synthetic ROI-only dataset of
      300 test frames at the flagship geometry, seeded random weights saved
      as .pth, and ``rtpose_tpu_torch.tools.test`` on configs/cruw_pose/
@@ -37,8 +45,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
   7. four more speed windows, then one run under torch.profiler: device
      time and operations per frame, the card's idle share, the kernels
      with the most device time, and every kernel of the path launched
-     (preprocess once per forward, conv 14 times, GroupNorm 48), counted by symbol in
-     the trace and checked against the wrappers and the graph replays;
+     (preprocess once per forward, conv 14 times, GroupNorm 48, the resize
+     13), counted by symbol in the trace and checked against the wrappers
+     and the graph replays;
   8. one frame through the port on the card (bf16 + kernels) against the
      same frame and weights through the port on the CPU in float32;
   9. the conv backward (``Conv3dK3``): grad-input through the K3 kernel on
@@ -266,6 +275,10 @@ K3_PER_STEP = 14    # stride-1 32->32 3x3x3 convs of the flagship forward
 # shared_conv GroupNorm, once (the sparse path applies it densely)
 GN_PER_FORWARD = 48
 GN_PHASE = 49
+# trilinear resizes of an eval forward of a four-branch trunk (bf16, no
+# grad: the resize kernel's): 1 + 3 + 6 in the fuses of stages 2-4, 3 in the
+# final fuse; none in training, where the plain version keeps the gradient
+RS_PER_FORWARD = 13
 SPEED_RUNS = 5  # speed windows, each the middle third of the test frames
 CALLS, REPLAYS = 20, 5   # device timing: calls per CUDA graph, replays
 TRACE_EDGE_S = 0.1  # idle card between a traced epoch and its trace window's edges
@@ -746,6 +759,111 @@ def phase_group_norm(dev):
                 shape="the trunk's 48 GroupNorms of a forward (ms: B=1; trunk: B=1 and B=8)")
 
 
+def bf16_ulps(got, want):
+    """The largest |got - want| in bf16 ulps of ``want`` (the spacing at
+    |want|, at least at 2^-8 of the largest |want|)."""
+    import torch
+    w = want.float().abs()
+    w = w.clamp_min(w.max().item() * 2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def phase_resize(dev):
+    """The resize kernel at the 13 resizes of a forward of the flagship
+    trunk and of ``_phase``'s, B=1 and B=8, inputs and addends N(0, 9): each
+    against ``F.interpolate`` (one bf16 ulp), the addend's epilogue equal to
+    ``addend + resize`` and the final fuse's slices to the resize, two
+    launches bit-identical, one launch counted a call; device times
+    (``device_ms``) of each call and of the 13 together on the kernel, the
+    plain route (``resize_reference``: permute, ``F.interpolate``, copy, add
+    or slice copy) and ``F.interpolate`` alone on a channels-first input,
+    beside the byte bound (input, addend and output once)."""
+    import torch
+    import torch.nn.functional as F
+    from rtpose_tpu_torch import ops
+    from rtpose_tpu_torch.models.hrnet3d import MODEL_CONFIGS, resize_calls
+    from rtpose_tpu_torch.ops import interpolate as rs
+
+    trunks, rows = {}, []
+    worst, eq_min = 0.0, 1.0
+    for model, cfg in (("flagship", "hr_tiny_feat32_zyx_l4_in32"),
+                       ("phase", "hr_tiny_feat64_zyx_l4_in64")):
+        chans = MODEL_CONFIGS[cfg]["stage4"]["num_channels"]
+        for B in (1, 8):
+            gen = torch.Generator(device=dev).manual_seed(13)
+
+            def randn(*shape):
+                return (torch.randn(shape, generator=gen, device=dev) * 3).to(torch.bfloat16)
+
+            cat = torch.empty((B, 16, 64, 160, sum(chans)), dtype=torch.bfloat16, device=dev)
+            c0, cases = chans[0], []
+            for zin, zout, C, add in resize_calls(cfg, (16, 64, 160)):
+                dst = None if add else cat[..., c0:c0 + C]
+                c0 += 0 if add else C
+                cases.append((randn(B, *zin, C), zout, randn(B, *zout, C) if add else None, dst))
+            tot = dict(ms=0.0, bound_ms=0.0)
+            with torch.inference_mode():
+                for x, size, a, dst in cases:
+                    tag = f"resize {model} {tuple(x.shape)} -> {size}"
+                    if not rs.kernel_route(x, size, a, dst):
+                        fail(f"{tag}: not on the kernel's route")
+                    ops.reset_launch_counts()
+                    got = rs.resize_trilinear_align_corners(x, size)
+                    if not torch.equal(got, rs.resize_trilinear_align_corners(x, size)):
+                        fail(f"{tag}: two launches on the same input differ")
+                    lib = F.interpolate(x.permute(0, 4, 1, 2, 3), size=size, mode="trilinear",
+                                        align_corners=True).permute(0, 2, 3, 4, 1)
+                    u, eq = bf16_ulps(got, lib), (got == lib).float().mean().item()
+                    worst, eq_min = max(worst, u), min(eq_min, eq)
+                    if u > 1.0:
+                        fail(f"{tag}: {u} bf16 ulps from F.interpolate")
+                    if a is not None:
+                        if not torch.equal(rs.resize_trilinear_align_corners(x, size, addend=a),
+                                           a + got):
+                            fail(f"{tag}: the addend's epilogue is not addend + resize")
+                    else:
+                        rs.resize_trilinear_align_corners(x, size, out=dst)
+                        if not torch.equal(dst, got):
+                            fail(f"{tag}: the slice written is not the resize")
+                    if ops.launch_counts()["resize_trilinear"] != 3:
+                        fail(f"{tag}: {ops.launch_counts()} launches, expected 3")
+                    ms = device_ms(lambda: rs.resize_trilinear_align_corners(x, size, a, dst))
+                    nbytes = 2 * (x.numel() + (1 if a is None else 2) * got.numel())
+                    bound = nbytes / PEAK_BYTES * 1e3
+                    tot["ms"] += ms
+                    tot["bound_ms"] += bound
+                    rows.append(dict(model=model, shape=tuple(x.shape), size=size,
+                                     addend=a is not None, ms=ms, bound_ms=bound,
+                                     share_of_bound=bound / ms, bf16_ulps=u, bit_equal=eq))
+                    print(f"[resize] {tag}{' + addend' if a is not None else ''}: {ms:.4f} ms "
+                          f"({100 * bound / ms:.1f} % of bound {bound:.4f} ms), {u} ulps, "
+                          f"{100 * eq:.4f} % bit-equal to F.interpolate")
+                tot["together_ms"] = device_ms(
+                    lambda: [rs.resize_trilinear_align_corners(*c) for c in cases])
+                tot["plain_ms"] = device_ms(lambda: [rs.resize_reference(*c) for c in cases])
+                cf = [(x.permute(0, 4, 1, 2, 3).contiguous(), size) for x, size, _, _ in cases]
+                tot["library_ms"] = device_ms(lambda: [
+                    F.interpolate(x, size=size, mode="trilinear", align_corners=True)
+                    for x, size in cf])
+            tot["share_of_bound"] = tot["bound_ms"] / tot["together_ms"]
+            trunks[f"{model}_B{B}"] = tot
+            print(f"[resize] {model} at B={B} ({len(cases)} resizes): {tot['together_ms']:.4f} "
+                  f"ms ({100 * tot['share_of_bound']:.1f} % of bound {tot['bound_ms']:.4f} ms; "
+                  f"one at a time {tot['ms']:.4f}), plain {tot['plain_ms']:.4f} ms, "
+                  f"F.interpolate {tot['library_ms']:.4f} ms")
+    print(f"[resize] worst {worst} bf16 ulps, at least {100 * eq_min:.4f} % bit-equal")
+    f1 = trunks["flagship_B1"]
+    return dict(name="resize_trilinear", route="cuda",
+                source="rtpose_tpu_torch/csrc/resize_trilinear.cu", replaces=None,
+                max_bf16_ulps=worst, min_bit_equal_share=eq_min, ms=f1["together_ms"],
+                plain_ms=f1["plain_ms"], bound_ms=f1["bound_ms"], bound_by="bytes",
+                library_ms=f1["library_ms"], share_of_bound=f1["share_of_bound"],
+                trunks=trunks, shapes=rows, deterministic=True,
+                shape="the flagship trunk's 13 resizes of a forward (ms: B=1; trunks: "
+                      "flagship and _phase, B=1 and B=8)")
+
+
 def phase_conv_int8(dev):
     """The int8 K3 kernel against its plain version, bit for bit, at the main
     path's four shapes (bf16 and float32 out), ragged shapes with bias (one
@@ -1138,9 +1256,11 @@ def phase_speed_and_trace(tmp, cfg_path, ckpt, first_ms):
     launches = eval_launches("e2e traced test", out, symbols)
     forwards = FRAMES + eval_captures(out)
     if (launches["preprocess"] != forwards or launches["conv3d_k3"] != 14 * forwards
-            or launches["group_norm"] != GN_PER_FORWARD * forwards):
+            or launches["group_norm"] != GN_PER_FORWARD * forwards
+            or launches["resize_trilinear"] != RS_PER_FORWARD * forwards):
         fail(f"e2e traced test: launches {launches}, expected {forwards} forwards' 1 "
-             f"preprocess, 14 bf16 conv and {GN_PER_FORWARD} GroupNorm launches each")
+             f"preprocess, 14 bf16 conv, {GN_PER_FORWARD} GroupNorm and {RS_PER_FORWARD} "
+             "resize launches each")
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / FRAMES
     n_ops = sum(e.count for e in ops) / FRAMES
     print(f"[trace] {traced_wall:.1f} s traced run, {time.perf_counter() - t0:.1f} s to "
@@ -1285,7 +1405,7 @@ def run_train(tag, argv, epochs, counted_steps=None):
     counted = steps if counted_steps is None else counted_steps
     want = {"preprocess": counted, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * counted,
             "conv3d_k3_bwd": K3_PER_STEP * counted, "conv3d_k3_int8": 0,
-            "deform_conv2d": 0, "group_norm": 0}
+            "deform_conv2d": 0, "group_norm": 0, "resize_trilinear": 0}
     if counts != want:
         fail(f"{tag}: training launch counts {counts}, expected {want}")
     print(f"[{tag}] losses {[round(v, 4) for v in losses]}")
@@ -1587,7 +1707,7 @@ def phase_train_fused(tmp, cfg_path, cached_run, p0, noise_dist):
         fail(f"fused: {es.replays} graph replays for {steps} steps")
     captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
                 "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0,
-                "group_norm": 0}
+                "group_norm": 0, "resize_trilinear": 0}
     if es.launches_per_step != captured:
         fail(f"fused: the wrappers counted {es.launches_per_step} during the capture, "
              f"expected {captured}")
@@ -1760,7 +1880,8 @@ def slice_config(tmp, tag, name, root):
 KERNEL_SYMBOLS = {"preprocess_kernel": ("preprocess", "preprocess_single"),
                   "conv3d_k3_kernel": ("conv3d_k3", "conv3d_k3_bwd"),
                   "deform_conv2d_fwd_kernel": ("deform_conv2d",),
-                  "group_norm_apply_kernel": ("group_norm",)}
+                  "group_norm_apply_kernel": ("group_norm",),
+                  "upsample_trilinear3d_cl_kernel": ("resize_trilinear",)}
 
 
 def cuda_trace(fn):
@@ -2031,7 +2152,8 @@ def phase_skel_mp2(tmp, dev):
          "--seed", "0", "--stop_epoch", "1"]), steps, "step")
     ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
     out, test = slice_test("mp2", cfg_path, ckpt, os.path.join(tmp, "mp2_eval"), n_test,
-                           dict(preprocess=1, conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD),
+                           dict(preprocess=1, conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD,
+                                resize_trilinear=RS_PER_FORWARD),
                            -(-n_test // 8),
                            persons=2, extra=["--device_preprocess"])
 
@@ -2067,7 +2189,8 @@ def phase_skel_mp2(tmp, dev):
     ops.reset_launch_counts()
     got = load_predict(art)(xb)
     slice_counts("mp2 artifact", ops.launch_counts(),
-                 dict(conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD))
+                 dict(conv3d_k3=K3_PER_STEP, group_norm=GN_PER_FORWARD,
+                      resize_trilinear=RS_PER_FORWARD))
     (ka, sa), (kl, sl) = got[0], live[0]
     art_err = float((ka - kl).abs().max())
     if ka.shape != (8, 2, 15, 3) or art_err > SERVE_ARTIFACT_ATOL_M:
@@ -2106,7 +2229,7 @@ def phase_dcn(tmp, train_root, dev):
     ckpt = os.path.join(work, "checkpoints", "epoch_1.pth")
     _, test = slice_test("dcn", cfg_path, ckpt, os.path.join(tmp, "dcn_eval"), 8,
                          dict(preprocess=1, conv3d_k3=K3_PER_STEP, deform_conv2d=2,
-                              group_norm=GN_PER_FORWARD), 1,
+                              group_norm=GN_PER_FORWARD, resize_trilinear=RS_PER_FORWARD), 1,
                          extra=["--device_preprocess"])
     _, gpu, cpu = card_and_cpu_models(cfg, seeded_state_dict(cfg, DCN_OFFSET_STD), dev)
     ds = build_dataset_from_cfg(cfg.data, "test", device_preprocess=True)
@@ -2147,7 +2270,8 @@ def phase_complex(tmp):
     _, train["trace"] = traced("phase train", lambda: port_train.main(
         argv + ["--work_dir", os.path.join(tmp, "phase_trace")]), n_train, "step")
     _, test = slice_test("phase", cfg_path, os.path.join(work, "checkpoints", "epoch_1.pth"),
-                         os.path.join(tmp, "phase_eval"), n_test, dict(group_norm=GN_PHASE),
+                         os.path.join(tmp, "phase_eval"), n_test,
+                         dict(group_norm=GN_PHASE, resize_trilinear=RS_PER_FORWARD),
                          n_test,
                          extra=["--device_preprocess"])
     wall = time.perf_counter() - t_phase
@@ -2288,14 +2412,16 @@ def phase_lidar(tmp, dev):
     ckpt = os.path.join(work, "checkpoints", "epoch_2.pth")
     forwards = -(-n_test // 8)
     _, test = slice_test("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_eval"), n_test,
-                         dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD), forwards)
+                         dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD,
+                              resize_trilinear=RS_PER_FORWARD), forwards)
     test.update(speed_windows("lidar", cfg_path, ckpt, os.path.join(tmp, "lidar_speed"),
                               n_test))
     tta_path = lidar_config(tmp, "lidar_tta", root, LIDAR_TTA_LINES)
     if not assemble(Config.fromfile(tta_path)).tta_double_flip:
         fail("lidar tta: the config's double_flip did not reach the assembly")
     _, tta = slice_test("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_eval"),
-                        n_test, dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD),
+                        n_test, dict(conv3d_k3=K3_LIDAR, group_norm=GN_PER_FORWARD,
+                                     resize_trilinear=RS_PER_FORWARD),
                         4 * forwards)
     tta.update(speed_windows("lidar tta", tta_path, ckpt, os.path.join(tmp, "lidar_tta_speed"),
                              n_test))
@@ -2356,7 +2482,7 @@ def phase_lidar(tmp, dev):
         torch.cuda.synchronize()
         want_counts = (dict(conv3d_k3_int8=K3_LIDAR) if kind == "int8"
                        else dict(conv3d_k3=K3_LIDAR))
-        want_counts["group_norm"] = GN_PER_FORWARD
+        want_counts.update(group_norm=GN_PER_FORWARD, resize_trilinear=RS_PER_FORWARD)
         slice_counts(f"lidar {kind} artifact", ops.launch_counts(), want_counts)
         (ka, sa, _), (kl, sl, _) = got[0], live[0]
         err = float((ka - kl).abs().max())
@@ -2658,14 +2784,14 @@ def phase_dp(tmp, cfg_path, refs=None):
             r[tag]["params"] = params[0]
     per_step = {"preprocess": steps, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP * steps,
                 "conv3d_k3_bwd": K3_PER_STEP * steps, "conv3d_k3_int8": 0, "deform_conv2d": 0,
-                "group_norm": 0}
+                "group_norm": 0, "resize_trilinear": 0}
     for r in ranks:
         dp_check_counts(f"dp train rank {r['rank']}", r["train"], steps, per_step,
                         {"all_reduce": DP_ALL_REDUCES_PER_STEP * steps,
                          "barrier": TRAIN_EPOCHS})
         captured = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
                     "conv3d_k3_bwd": K3_PER_STEP, "conv3d_k3_int8": 0, "deform_conv2d": 0,
-                    "group_norm": 0}
+                    "group_norm": 0, "resize_trilinear": 0}
         two = {k: 2 * v for k, v in captured.items()}    # the warm-up step and the capture
         # the warm-up step and the capture each issue the step's collectives
         dp_check_counts(f"dp fused rank {r['rank']}", r["fused"], steps, two,
@@ -2758,7 +2884,7 @@ def phase_dp(tmp, cfg_path, refs=None):
     # each rank's share of the 8 frames is one padded batch of 8: one forward
     want = {"preprocess": 1, "preprocess_single": 0, "conv3d_k3": K3_PER_STEP,
             "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0,
-            "group_norm": GN_PER_FORWARD}
+            "group_norm": GN_PER_FORWARD, "resize_trilinear": RS_PER_FORWARD}
     if any(r["test"]["launches"] != want for r in ranks):
         fail(f"phase 25: tools.test launch counts {[r['test']['launches'] for r in ranks]}, "
              f"expected {want} on each rank")
@@ -3328,7 +3454,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = [*phase_preprocess(dev), phase_conv(dev), phase_conv_bwd(dev),
-               phase_conv_int8(dev), phase_deform(dev), phase_group_norm(dev)]
+               phase_conv_int8(dev), phase_deform(dev), phase_group_norm(dev),
+               phase_resize(dev)]
     phase_autograd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path, cfg, ckpt = write_inputs(tmp)
@@ -3357,7 +3484,7 @@ def main() -> int:
         dp = phase_dp(tmp, train_cfg, (host_run, cached_run, p0,
                                        train["device_cache"]["param_rel_dist"]))
     tc, ft = train["launches"], train["fused"]["trace_launches"]
-    k1, k2, k3, k3_bwd, k3_int8, k_deform, k_gn = kernels
+    k1, k2, k3, k3_bwd, k3_int8, k_deform, k_gn, k_rs = kernels
     # the deformable head's eval: its slice's tools.test (eager, capture, replays)
     k_deform["launches"] = slices["dcn"]["test"]["launches"]["deform_conv2d"]
     # the serving path's own run: the int8 artifact through tools.test
@@ -3371,8 +3498,9 @@ def main() -> int:
     k3["launches"] = e2e["launches"]["conv3d_k3"]
     k3_bwd["launches"] = tc["conv3d_k3_bwd"]
     k_gn["launches"] = e2e["launches"]["group_norm"]
+    k_rs["launches"] = e2e["launches"]["resize_trilinear"]
     for k, name in ((k1, "preprocess"), (k3, "conv3d_k3"), (k3_bwd, "conv3d_k3_bwd"),
-                    (k_gn, "group_norm")):
+                    (k_gn, "group_norm"), (k_rs, "resize_trilinear")):
         k["kernel_ms"] = k["ms"]
         k["train_launches"] = tc[name]
     # the replays of the traced fused epoch, by kernel symbol in the trace
@@ -3382,7 +3510,7 @@ def main() -> int:
     # each slice path's own runs: the wrappers' counts, reset just before each
     names = {"preprocess": k1, "preprocess_single": k2, "conv3d_k3": k3,
              "conv3d_k3_bwd": k3_bwd, "conv3d_k3_int8": k3_int8, "deform_conv2d": k_deform,
-             "group_norm": k_gn}
+             "group_norm": k_gn, "resize_trilinear": k_rs}
     lidar = slices["lidar"]
     for name, k in names.items():
         k["path_launches"] = {}

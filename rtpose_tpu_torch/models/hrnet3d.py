@@ -117,9 +117,9 @@ class HighResolutionModule(nn.Module):
             for j in range(1, self.num_branches):
                 if j == i:
                     y = y + feats[j]
-                elif j > i:
-                    y = y + resize_trilinear_align_corners(row[j](feats[j]),
-                                                           feats[i].shape[1:4])
+                elif j > i:     # a new tensor: row 0's first y is feats[0], read again
+                    y = resize_trilinear_align_corners(row[j](feats[j]), feats[i].shape[1:4],
+                                                       addend=y)
                 else:
                     y = y + row[j](feats[j])
             out.append(torch.relu(y))
@@ -190,6 +190,45 @@ class HighResolution3DNet(nn.Module):
         return y_list
 
 
+def resize_calls(backbone_cfg: str, grid_zyx) -> List[tuple]:
+    """The trilinear resizes of one forward of ``HRNet3D(backbone_cfg)``
+    with the 'conat_conv' final fuse on a ``grid_zyx`` input, in order:
+    (input grid, output grid, C, whether it adds into a fuse's sum) — each
+    module's fuse rows in turn, then the final fuse's (for the resize
+    kernel's tests and timings)."""
+    cfg = MODEL_CONFIGS[backbone_cfg]
+    grids = [tuple(g >> k for g in grid_zyx) for k in range(4)]
+    calls = []
+    for sname in ("stage2", "stage3", "stage4"):
+        scfg = cfg.get(sname)
+        if scfg is None:
+            break
+        nb, chans = scfg["num_branches"], scfg["num_channels"]
+        calls += [(grids[j], grids[i], chans[i], True) for _ in range(scfg["num_modules"])
+                  for i in range(nb) for j in range(i + 1, nb)]
+    return calls + [(grids[j], grids[0], chans[j], False) for j in range(1, nb)]
+
+
+def concat_resized(top: torch.Tensor, branches: List[torch.Tensor],
+                   scales: Optional[List[Optional[float]]] = None) -> torch.Tensor:
+    """``top`` and each of ``branches`` resized to its grid (trilinear,
+    align corners; the int8 form for a branch given a scale), concatenated
+    on channels: each resize writes its own slice of one buffer, where
+    ``torch.cat`` would copy every resized branch once more."""
+    scales = scales or [None] * len(branches)
+    C = top.shape[4]
+    out = top.new_empty((*top.shape[:4], C + sum(f.shape[4] for f in branches)))
+    out[..., :C].copy_(top)
+    for f, scale in zip(branches, scales):
+        dst = out[..., C:C + f.shape[4]]
+        if scale is None:
+            resize_trilinear_align_corners(f, top.shape[1:4], out=dst)
+        else:
+            dst.copy_(resize_trilinear_int8(f, top.shape[1:4], scale))
+        C += f.shape[4]
+    return out
+
+
 # the JAX package folds X by 4 when every branch's X (X / 8 at the
 # coarsest) stays divisible by 4 (``rtpose_tpu/models/hrnet3d.py:255``)
 FOLD_X = 32
@@ -241,12 +280,11 @@ class HRNet3D(nn.Module):
         if quantized and self.site is None:
             raise RuntimeError("HRNet3D under a quant context has no site: "
                                "engine.convert.bind_sites(model) names them")
-        ups = []
+        branches, scales = [], []
         for i, f in enumerate(feats[1:]):
             f = f.to(top.dtype)
-            scale = (quant.consult(f"{self.site}/final_fuse{i + 1}_resize", f)
-                     if quantized else None)
-            ups.append(resize_trilinear_align_corners(f, top.shape[1:4]) if scale is None
-                       else resize_trilinear_int8(f, top.shape[1:4], scale))
-        out = torch.cat([top, *ups], dim=-1)
+            branches.append(f)
+            scales.append(quant.consult(f"{self.site}/final_fuse{i + 1}_resize", f)
+                          if quantized else None)
+        out = concat_resized(top, branches, scales)
         return out if self.final_conv is None else self.final_conv(out, quantize=folded)

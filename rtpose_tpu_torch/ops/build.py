@@ -51,6 +51,8 @@ KERNELS = {
                     [_P] * 4 + [_I] * 8 + [_P], ("deform_conv2d",)),
     "group_norm": ("group_norm.cu", "rtpose_group_norm",
                    [_P] * 5 + [_I] * 6 + [_F, _P], ("group_norm",)),
+    "resize_trilinear": ("resize_trilinear.cu", "rtpose_resize_trilinear",
+                         [_P] * 3 + [_I] * 11 + [_P], ("resize_trilinear",)),
 }
 # counter -> kernel launches since the last ``reset_launch_counts``
 _launches: Dict[str, int] = {c: 0 for *_, counters in KERNELS.values() for c in counters}

@@ -12,7 +12,11 @@ serving artifact (``export.py``) reaches the kernels through these ops:
   ``conv_k3.prepare_flipped`` weights (no artifact holds it: the wrappers
   launch through the ops while a dispatch mode is active, ``conv_k3``);
 * ``rtpose::group_norm(x, weight, bias, groups, eps)`` — the GroupNorm
-  kernel (``group_norm.launch``) on a bf16 (B, ..., C) input.
+  kernel (``group_norm.launch``) on a bf16 (B, ..., C) input;
+* ``rtpose::resize_trilinear(x, size, addend)`` — the trilinear resize
+  kernel (``interpolate.launch``) on a bf16 (B, Z, Y, X, C) input, with the
+  addend's epilogue (the wrapper writes a result meant for a channel slice
+  with ``copy_``).
 
 Each has a fake (meta) implementation for tracing and one for the CPU and
 CUDA that is the kernel's wrapper, called with the mode off: the plain
@@ -35,7 +39,7 @@ from typing import List, Optional
 import torch
 from torch.utils.flop_counter import flop_registry, register_flop_formula
 
-from . import conv_k3, conv_k3_int8, group_norm, preprocess
+from . import conv_k3, conv_k3_int8, group_norm, interpolate, preprocess
 
 
 _DEVICES = ("cpu", "cuda")
@@ -97,6 +101,17 @@ def group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gro
 @group_norm_op.register_fake
 def _(x, weight, bias, groups, eps):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("rtpose::resize_trilinear", mutates_args=(), device_types=_DEVICES)
+def resize_trilinear_op(x: torch.Tensor, size: List[int],
+                        addend: Optional[torch.Tensor]) -> torch.Tensor:
+    return interpolate.launch(x, size, addend)
+
+
+@resize_trilinear_op.register_fake
+def _(x, size, addend):
+    return x.new_empty((x.shape[0], *size, x.shape[4]))
 
 
 def _k3_flops(x_shape, *args, out_shape=None, **kwargs) -> int:

@@ -67,10 +67,9 @@ from ..core.decode import flat_argmax
 from ..engine import (bind_sites, create_train_state, make_loss_fn, make_train_step,
                       targets_from_batch)
 from ..models import GNConv, ResNetBlock, init_weights
-from ..models.hrnet3d import MODEL_CONFIGS, HighResolutionModule
+from ..models.hrnet3d import MODEL_CONFIGS, HighResolutionModule, concat_resized
 from ..models.layers import conv3d
 from ..ops import quant
-from ..ops.interpolate import resize_trilinear_align_corners
 from ..solver import AdamOneCycle, make_one_cycle_fns
 from ..utils.flops import estimate_flops
 
@@ -410,9 +409,7 @@ class FinalFuse(torch.nn.Module):
     first's grid (trilinear, align corners), concatenated on channels."""
 
     def forward(self, xs):
-        top = xs[0]
-        return torch.cat([top, *(resize_trilinear_align_corners(f, top.shape[1:4])
-                                 for f in xs[1:])], dim=-1)
+        return concat_resized(xs[0], list(xs[1:]))
 
 
 def backbone_segments(asm: Assembly, batch: int, rng: np.random.Generator,

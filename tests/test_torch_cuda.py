@@ -149,7 +149,8 @@ def test_conv_backward_matches_plain(dev, shape, with_bias):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 1,
                                    "conv3d_k3_bwd": 1, "conv3d_k3_int8": 0,
-                                   "deform_conv2d": 0, "group_norm": 0}
+                                   "deform_conv2d": 0, "group_norm": 0,
+                                   "resize_trilinear": 0}
     want_gx = conv_k3.conv3d_k3_reference(go, conv_k3.flip_transpose(w))
     torch.testing.assert_close(xk.grad.float(), want_gx.float(), rtol=2.0 ** -7,
                                atol=2e-3 * want_gx.float().abs().max().item())
@@ -590,8 +591,9 @@ def test_phase_eval_graph_replays_leave_the_counts(dev):
     first frame eager, the second captured, the rest replayed, each frame's
     answer the eager step's.  The shared conv and the patches are counted
     on the eager call, the capture's warm-up and the capture, not on a
-    replay; the graph launches no K1, no K3 and 49 GroupNorms a forward (the
-    trunk's 48 and the shared conv's one: it runs once, densely); the
+    replay; the graph launches no K1, no K3, 49 GroupNorms a forward (the
+    trunk's 48 and the shared conv's one: it runs once, densely) and 13
+    resizes; the
     prefetch counts every frame's bytes."""
     import numpy as np
 
@@ -628,8 +630,9 @@ def test_phase_eval_graph_replays_leave_the_counts(dev):
     assert detectors.counts() == dict(shared_calls=3, shared_voxels=3 * Z * Y * X,
                                       reg_patches=3)
     assert ops.launch_counts()["group_norm"] == 3 * 49
+    assert ops.launch_counts()["resize_trilinear"] == 3 * 13
     per = step.counts()["launches_per_replay"]
-    assert per["group_norm"] == 49
+    assert per["group_norm"] == 49 and per["resize_trilinear"] == 13
     assert per["preprocess"] == per["preprocess_single"] == per["conv3d_k3"] == 0
     assert evaluator.counts()["h2d_bytes"] == frames.nbytes
     want, _ = run_eval(step.step, Loader(), asm.decode_spec, device=dev)
@@ -777,6 +780,130 @@ def test_group_norm_kernel_counts_48_a_trunk_forward_and_none_in_training(dev):
         model.pose_head.shared_conv[0](feat.float())
     torch.cuda.synchronize()
     assert ops.launch_counts()["group_norm"] == 0
+
+
+# ------------------------------------------------------------ trilinear resize
+
+def _rs_calls():
+    from rtpose_tpu_torch.models.hrnet3d import resize_calls
+    return [pytest.param(*c, id=f"{m}-{k}") for m, cfg in (
+        ("flagship", "hr_tiny_feat32_zyx_l4_in32"), ("phase", "hr_tiny_feat64_zyx_l4_in64"))
+        for k, c in enumerate(resize_calls(cfg, (16, 64, 160)))]
+
+
+def _rs_case(dev, shape, size, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+    a = (torch.randn((shape[0], *size, shape[4]), generator=g, device=dev) * 3).to(torch.bfloat16)
+    return x, a
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("zin,zout,C,add", _rs_calls())
+def test_resize_kernel_matches_f_interpolate(dev, B, zin, zout, C, add):
+    """At every resize of the flagship's and the feat64 trunk's forward: the
+    kernel within one bf16 ulp of ``F.interpolate`` (the share of bit-equal
+    elements printed), bit-equal to its arithmetic in stock float32 ops
+    (``kernel_reference`` on the card), the addend's epilogue bit-equal to
+    the separate add and the slice to the resize, two launches bit-equal,
+    one launch counted a call."""
+    import torch.nn.functional as F
+
+    from rtpose_tpu_torch.ops import interpolate as rs
+
+    x, a = _rs_case(dev, (B, *zin, C), zout)
+    buf = torch.zeros((B, *zout, 3 * C), dtype=torch.bfloat16, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        assert rs.kernel_route(x, zout, a) and rs.kernel_route(x, zout, out=buf[..., C:2 * C])
+        got, again = rs.resize_trilinear_align_corners(x, zout), \
+            rs.resize_trilinear_align_corners(x, zout)
+        fused = rs.resize_trilinear_align_corners(x, zout, addend=a)
+        rs.resize_trilinear_align_corners(x, zout, out=buf[..., C:2 * C])
+        model = rs.kernel_reference(x, zout)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["resize_trilinear"] == 4
+    assert torch.equal(got, again) and torch.equal(got, model)
+    assert torch.equal(fused, a + got) and torch.equal(buf[..., C:2 * C], got)
+    assert not buf[..., :C].any() and not buf[..., 2 * C:].any()
+    lib = F.interpolate(x.permute(0, 4, 1, 2, 3), size=zout, mode="trilinear",
+                        align_corners=True).permute(0, 2, 3, 4, 1)
+    ulps = _bf16_ulps(got, lib)
+    print(f"resize {(B, *zin, C)} -> {zout}: {ulps} bf16 ulps, "
+          f"{100 * (got == lib).float().mean().item():.4f} % bit-equal to F.interpolate")
+    assert ulps <= 1.0
+
+
+def test_resize_kernel_graph_replay_equals_eager_and_leaves_the_addend(dev):
+    """Two replays of a captured launch give the eager call's bits; the
+    addend, which the fuse reads again (row 0's running sum starts as
+    ``feats[0]``), is left as it was."""
+    from rtpose_tpu_torch.ops import interpolate as rs
+
+    x, a = _rs_case(dev, (8, 8, 32, 80, 32), (16, 64, 160), seed=1)
+    a0 = a.clone()
+    with torch.no_grad():
+        want = rs.resize_trilinear_align_corners(x, (16, 64, 160), addend=a)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rs.resize_trilinear_align_corners(x, (16, 64, 160), addend=a)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ops.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            out = rs.resize_trilinear_align_corners(x, (16, 64, 160), addend=a)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+    assert ops.launch_counts()["resize_trilinear"] == 1    # the capture; replays pass no wrapper
+    assert torch.equal(a, a0) and out.data_ptr() != a.data_ptr()
+
+
+def test_resize_kernel_zero_size_and_misaligned(dev):
+    from rtpose_tpu_torch.ops import interpolate as rs
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = rs.resize_trilinear_align_corners(
+            torch.empty((0, 2, 4, 5, 16), dtype=torch.bfloat16, device=dev), (4, 8, 10))
+        assert out.shape == (0, 4, 8, 10, 16)
+        flat = torch.zeros(2 * 4 * 5 * 16 + 4, dtype=torch.bfloat16, device=dev)
+        x = flat[4:].view(1, 2, 4, 5, 16)      # 8 bytes into its storage
+        assert not rs.kernel_route(x, (4, 8, 10))
+        assert torch.equal(rs.resize_trilinear_align_corners(x, (4, 8, 10)),
+                           rs.resize_reference(x, (4, 8, 10)))
+    assert ops.launch_counts()["resize_trilinear"] == 0
+
+
+def test_resize_kernel_counts_13_a_forward_of_the_eval_step(dev):
+    """The eval step (the small model, the flagship trunk) launches the
+    resize kernel 13 times a forward: the eager call, the capture's warm-up
+    and the capture each 13, and the graph holds 13 a replay; a training
+    forward and a float32 resize launch none."""
+    from rtpose_tpu_torch.ops import interpolate as rs
+
+    model, step, raw = _small_eval(dev)
+    b = {"rdr_raw": raw(2, 0)}
+    ops.reset_launch_counts()
+    rs.reset()
+    step(b)
+    step(b)
+    step(b)
+    torch.cuda.synchronize()
+    assert step.launches_per_replay["resize_trilinear"] == 13
+    assert ops.launch_counts()["resize_trilinear"] == 3 * 13
+    assert rs.counts() == dict(kernel=3 * 13, plain=0)
+    ops.reset_launch_counts()
+    rs.reset()
+    x = torch.rand((2, *SMALL_GRID, 32), device=dev)
+    model.train().extract_feat(x).float().sum().backward()
+    with torch.no_grad():
+        rs.resize_trilinear_align_corners(x, (16, 32, 64))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["resize_trilinear"] == 0
+    assert rs.counts() == dict(kernel=0, plain=13 + 1)
 
 
 # ------------------------------------------------------------------ int8 K3
@@ -1135,7 +1262,7 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
     magnitude over the whole volume (``chip_smoke.py``'s ``E2E_FRAC``); the
     forward launches the conv kernel at its six 32 -> 32 convs (stages 2-4,
     the half-resolution branch), the GroupNorm kernel at its 48 GroupNorms,
-    and no other kernel."""
+    the resize kernel at its 13 resizes, and no other kernel."""
     gpu, cpu, batch = _lidar_models(dev)
     with torch.inference_mode():
         want = cpu(batch)[0]
@@ -1145,7 +1272,7 @@ def test_voxelnet_frame_card_matches_cpu_and_launches_k3(dev):
     counts = ops.launch_counts()
     assert counts == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 6,
                       "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0, "deform_conv2d": 0,
-                      "group_norm": 48}
+                      "group_norm": 48, "resize_trilinear": 13}
     span = (want["hm"].max() - want["hm"].min()).item()
     torch.testing.assert_close(got["hm"].float().cpu(), want["hm"], rtol=0, atol=0.05 * span)
     reg_max = want["reg"].abs().max().item()

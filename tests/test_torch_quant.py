@@ -354,9 +354,14 @@ def test_site_sets_and_scales_match_jax(models, grid):
     assert sorted(default) == sorted(set(got) - resizes)
 
 
-def _jax_resize_weights(x, size):
+def _jax_resize_weights(x, size, addend=None, out=None):
     """The port's float resize with the JAX package's float32 interpolation
-    matrices (``resize_trilinear_folded``'s X, then Z, then Y order)."""
+    matrices (``resize_trilinear_folded``'s X, then Z, then Y order), with
+    the resize's own ``addend`` and ``out`` epilogues."""
+    if addend is not None or out is not None:
+        y = _jax_resize_weights(x, size)
+        y = y if addend is None else addend + y
+        return y if out is None else out.copy_(y)
     out = x
     _, Z, Y, X, _ = x.shape
     tz, ty, tx = size

@@ -132,7 +132,8 @@ def test_k3_bwd_counts_no_kernel_on_cpu(k3_case):
     conv_k3.Conv3dK3.apply(x, w, None).sum().backward()
     assert ops.launch_counts() == {"preprocess": 0, "preprocess_single": 0, "conv3d_k3": 0,
                                    "conv3d_k3_bwd": 0, "conv3d_k3_int8": 0,
-                                   "deform_conv2d": 0, "group_norm": 0}
+                                   "deform_conv2d": 0, "group_norm": 0,
+                                   "resize_trilinear": 0}
     assert w.grad.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
 
 
