@@ -392,7 +392,8 @@ def make_epoch_step(train_step: Callable, batch_size: int, shapes: Dict[str, tup
 class EvalGraphs:
     """``graphs(batch)``: what the eval step ``step(batch)`` returns, from a
     CUDA graph replayed per input signature once the step has been seen at
-    it (``make_eval_step`` wraps the steps of a dense radar input in one).
+    it (``make_eval_step`` wraps the steps of a dense radar input in one,
+    ``export.load_predict`` the call of a loaded radar artifact).
 
     The signature is the key, shape, strides, dtype and device of the one
     tensor the step reads ('rdr_raw' where the batch carries it and the

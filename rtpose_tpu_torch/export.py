@@ -20,6 +20,25 @@ that order (the JAX ``export.py:64-66``).
 
 JAX's ``platforms`` becomes the one device the artifact was exported for,
 recorded in it; loading it for another device raises.
+
+On the card a loaded radar artifact's program is replayed from a CUDA
+graph, as the live eval step is (``engine.steps.EvalGraphs``, on
+``predict.graphs``): its first call at a cube's shape runs eagerly, its
+second is captured, every later call copies the cube in and replays.  Run
+eagerly, the program dispatches its ~1,500 operations one by one from the
+host, which took longer than the card's work (the flagship's int8 artifact
+at B=8 on an H100: 62 host ms and 82 ms a call, against 50 ms replayed)
+and left the time of a call to the host's speed.
+
+A loaded artifact's calls run inside the span ``serve.predict`` and are
+counted in ``counts()``: ``predict_calls``, ``frames`` (the artifact's
+static batch a call) and ``int8_sites`` (the metadata's, of the artifact
+loaded last; 0 for a float one), the Python call's; the captures, replays
+and eager calls are ``predict.graphs.counts()``.  ``reset`` zeroes all but
+``int8_sites``.  Inside the loaded program no Python of the package runs
+but the custom ops': ``ops.launch_counts()`` counts the kernels an eager
+call or a capture launches (a replay passes no wrapper), while
+``ops.quant.counts()`` and the span ``int8.site`` stay silent.
 """
 
 from __future__ import annotations
@@ -36,11 +55,26 @@ import torch.nn as nn
 
 from .core.decode import decode_pose_multi, decode_pose_sparse
 from .engine.convert import bind_sites
-from .engine.steps import VOXEL_KEYS
+from .engine.steps import VOXEL_KEYS, EvalGraphs
 from .models.layers import TorchConv3d
 from .ops import quant
+from .utils import trace
 
 META_FILE = "rtpose_meta.json"
+
+_COUNTS = dict(predict_calls=0, frames=0, int8_sites=0)
+
+
+def counts() -> dict:
+    """A loaded artifact's calls since the last ``reset`` (the module's doc)."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    """Zero the counts; ``int8_sites`` stays the loaded artifact's."""
+    for k in _COUNTS:
+        if k != "int8_sites":
+            _COUNTS[k] = 0
 
 
 class Predictor(nn.Module):
@@ -224,10 +258,19 @@ def load_predict(path_or_bytes, device: Optional[str] = None):
     if meta["device"] == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("artifact exported for cuda: no CUDA device found")
     module = torch.export.load(io.BytesIO(data)).module()
+    graphs = None
+    if not isinstance(meta["input_shape"], dict):     # a radar cube: one tensor
+        graphs = EvalGraphs(lambda batch: [module(batch["x"])], module, "x")
+    _COUNTS["int8_sites"] = int(meta.get("int8_sites") or 0)
 
     def predict(model_input):
-        with torch.no_grad():
-            return _grouped(module(*_inputs(model_input)), meta.get("multi_poses", 0))
+        with trace.span("serve.predict"), torch.no_grad():
+            _COUNTS["predict_calls"] += 1
+            _COUNTS["frames"] += int(meta["batch_size"])
+            args = _inputs(model_input)
+            outs = module(*args) if graphs is None else graphs({"x": args[0]})[0]
+            return _grouped(outs, meta.get("multi_poses", 0))
 
     predict.meta = meta
+    predict.graphs = graphs
     return predict

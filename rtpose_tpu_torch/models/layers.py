@@ -131,7 +131,7 @@ class TorchConv3d(nn.Module):
             if scale is not None:
                 prepared = self._weights(
                     x, lambda w, b: quant.prepare(w, b, scale, self.stride), scale)
-                return quant.conv3d_int8_prepared(x, scale, prepared, self.stride)
+                return quant.site_conv(self.site, x, scale, prepared, self.stride)
         if conv_k3.supports(x, self.weight, self.stride):
             if torch.is_grad_enabled():
                 # the kernel with its backward: the parameters get gradients

@@ -29,6 +29,18 @@ no fallback):
 * other CPU shapes: ``F.conv3d`` in float32 on the int8-valued tensors,
   over chunks of input channels whose sums cannot reach 2^24 (exact: every
   partial sum is a representable integer), the chunks added as int32.
+
+``site_conv`` is a site of the eager int8 path (``TorchConv3d`` calls it
+under ``int8_mode``): the span ``int8.site`` around the conv, and the
+site counted in ``counts()``: ``sites`` (int8 site calls), the calls of
+each route (``k3_kernel``: the K3 shape on CUDA; ``int_mm``: every other
+CUDA shape; ``plain``: every CPU call, the K3 shape's plain version
+included), ``concat_1x1`` (calls of the HRNet final fuse's concat + 1x1
+conv, the site ``FINAL_CONV``) and ``quant_elems`` (activation elements
+quantized).  The counts are the Python call's: a loaded ``torch.export``
+artifact runs none of this Python, so they stay at 0 while it serves (its
+kernels' custom ops count their launches in ``ops.launch_counts()``), and
+the export's own trace counts its one traced forward.
 """
 
 from __future__ import annotations
@@ -40,9 +52,26 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import conv_k3_int8
 
 _state = threading.local()
+
+# the leaf of the HRNet final fuse's int8 concat + 1x1 conv site
+# (``engine.convert.site_paths``: ``backbone_m/final_conv``)
+FINAL_CONV = "final_conv"
+
+_COUNTS = dict(sites=0, k3_kernel=0, int_mm=0, plain=0, concat_1x1=0, quant_elems=0)
+
+
+def counts() -> dict:
+    """Int8 site calls since the last ``reset`` (see the module's doc)."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
 class QuantState:
@@ -248,9 +277,35 @@ def conv3d_int8_prepared(x: torch.Tensor, act_scale: float, prepared: tuple, str
     wq, scale, bias, wk = prepared
     xq = _quantize_act(x, act_scale)
     out_dtype = out_dtype or x.dtype
-    if wk is not None and xq.dim() == 5 and xq.shape[-1] == conv_k3_int8.C:
+    if _takes_k3(x, wk):
         return conv_k3_int8.launch(xq, wk, scale, bias, out_dtype)
     return epilogue(int8_conv_acc(xq, wq, stride), scale, bias, out_dtype)
+
+
+def _takes_k3(x: torch.Tensor, wk: Optional[torch.Tensor]) -> bool:
+    """Whether ``conv3d_int8_prepared`` sends ``x`` to ``conv_k3_int8.launch``."""
+    return wk is not None and x.dim() == 5 and x.shape[-1] == conv_k3_int8.C
+
+
+def _route(x: torch.Tensor, prepared: tuple) -> str:
+    """The route ``conv3d_int8_prepared`` takes for ``x``, as ``counts()``
+    names it: 'k3_kernel', 'int_mm' or 'plain'."""
+    if x.device.type != "cuda":
+        return "plain"
+    return "k3_kernel" if _takes_k3(x, prepared[3]) else "int_mm"
+
+
+def site_conv(path: str, x: torch.Tensor, act_scale: float, prepared: tuple,
+              stride: int) -> torch.Tensor:
+    """``conv3d_int8_prepared`` as the int8 site ``path``: inside the span
+    ``int8.site``, counted in ``counts()``."""
+    with trace.span("int8.site"):
+        _COUNTS["sites"] += 1
+        _COUNTS[_route(x, prepared)] += 1
+        _COUNTS["quant_elems"] += x.numel()
+        if path.rsplit("/", 1)[-1] == FINAL_CONV:
+            _COUNTS["concat_1x1"] += 1
+        return conv3d_int8_prepared(x, act_scale, prepared, stride)
 
 
 def conv3d_int8(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],

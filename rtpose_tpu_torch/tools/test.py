@@ -158,8 +158,10 @@ def main(argv=None) -> dict:
             logger.info(f"profiler trace written to {path}")
     if sec_per_frame is not None:
         print(f"\n Total time per frame: {sec_per_frame}")
-    # the eval step's CUDA graph counters (its replays pass no kernel wrapper)
-    graphs = eval_step.counts() if isinstance(eval_step, EvalGraphs) else None
+    # the eval step's (or the artifact's) CUDA graph counters (its replays
+    # pass no kernel wrapper)
+    replayed = predict.graphs if args.exported else eval_step
+    graphs = replayed.counts() if isinstance(replayed, EvalGraphs) else None
     if parallel.process_index() != 0:
         sys.stdout.flush()
         return dict(results=None, sec_per_frame=sec_per_frame, detections=detections,

@@ -1057,6 +1057,62 @@ def test_custom_ops_export_on_the_card(dev):
                        preprocess.preprocess_reference(raw, roi, 0.0, 10.0))
 
 
+def test_int8_artifact_at_full_size_on_the_card(dev, tmp_path):
+    """The flagship's B=8 int8 serving artifact (51 sites), exported, saved
+    and loaded back on the card: its first call runs eagerly and launches
+    the int8 K3 kernel 14 times, the GroupNorm kernel 48 and the resize
+    kernel 13; its second is captured in a CUDA graph and replayed, its
+    third replayed; every answer equals the in-process int8 forward's
+    (``make_predict_fn`` under ``int8_mode``) within one bf16 ulp of the
+    epilogue (scores and the peaks' keypoints); ``export.counts()`` counts
+    each call and its frames, ``predict.graphs`` the eager call, the capture
+    and the replay, and the Python site counters stay silent inside the
+    loaded program."""
+    from rtpose_tpu_torch import export
+    from rtpose_tpu_torch.api import assemble
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.models import init_weights
+    from rtpose_tpu_torch.ops import quant
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "cruw_pose", "hr3d_one_hm_doppler.py")
+    asm = assemble(Config.fromfile(path))
+    init_weights(asm.model, torch.Generator().manual_seed(5))
+    asm.model.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(6)
+    xs = [torch.randn((8, *asm.input_shape_zyxc), generator=g, device=dev).abs()
+          for _ in range(3)]
+    scales = export.calibrate_predict(asm, xs[:2])
+    assert len(scales) == 51
+    ep = export.export_predict(asm, batch_size=8, device="cuda", int8_scales=scales,
+                               int8_exclude=quant.DEFAULT_EXCLUDE)
+    out = str(tmp_path / "int8_b8.pt2")
+    export.save_exported(out, ep)
+    predict = export.load_predict(out)
+    live = export.make_predict_fn(asm, int8_scales=scales)
+    export.reset()
+    for i, x in enumerate(xs):
+        quant.reset()
+        ops.reset_launch_counts()
+        (kpts, scores, labels), = predict(x)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert set(quant.counts().values()) == {0}
+        if i == 0:
+            assert launches["conv3d_k3_int8"] == 14
+            assert launches["group_norm"] == 48 and launches["resize_trilinear"] == 13
+        elif i == 2:
+            assert set(launches.values()) == {0}       # a replay passes no wrapper
+        (want_k, want_s, want_l), = live(x)
+        assert torch.equal(labels, want_l)
+        torch.testing.assert_close(scores, want_s, rtol=2.0 ** -8, atol=0)
+        torch.testing.assert_close(kpts, want_k, rtol=2.0 ** -8,
+                                   atol=2.0 ** -8 * float(want_k.abs().max()))
+    assert export.counts() == dict(predict_calls=3, frames=24, int8_sites=51)
+    graphs = predict.graphs.counts()
+    assert (graphs["eager"], graphs["captures"], graphs["replays"]) == (1, 1, 1)
+
+
 @pytest.mark.parametrize("mask", [False, True])
 def test_deform_conv_card_matches_cpu(dev, mask):
     """The deformable conv in float32 on the card against the CPU, forward

@@ -27,6 +27,7 @@ from rtpose_tpu_torch.models import TorchConv3d, init_weights
 from rtpose_tpu_torch.ops import conv_k3, conv_k3_int8, preprocess, quant
 from rtpose_tpu_torch.tools import export as export_cli
 from rtpose_tpu_torch.tools import test as test_cli
+from rtpose_tpu_torch.utils import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_ROI = {"z": [-1.0875, 1.8125], "y": [-1.25625, 1.25625],
@@ -260,12 +261,25 @@ def test_cli_export_int8_then_test_exported(env, capsys, caplog):
     # turned its propagation off (engine.trainer.get_root_logger)
     logger = logging.getLogger("rtpose_tpu_torch")
     logger.addHandler(caplog.handler)
+    pexp.reset()
+    quant.reset()
+    trace.enable()
+    trace.take()
     try:
         got = test_cli.main([env["cfg_path"], "--exported", out, "--testset",
                              "--device", "cpu", "--speed_test"])
+        spans = [s[0] for s in trace.take()]
     finally:
+        trace.disable()
         logger.removeHandler(caplog.handler)
     assert "NOT the reference's batch-1 protocol" in caplog.text
+    # the loaded program's calls are counted, each in a span; its int8 sites
+    # run inside the program, where the Python site hooks do not
+    assert pexp.counts() == dict(predict_calls=3, frames=6, int8_sites=52)
+    assert got["eval_graphs"] == dict(captures=0, replays=0, eager=3,
+                                      launches_per_replay={})    # CPU calls run eagerly
+    assert spans.count("serve.predict") == 3 and "int8.site" not in spans
+    assert set(quant.counts().values()) == {0}
     # outputs named after the artifact
     assert os.path.isfile(os.path.join(env["work"], "int8_b2", "test_prediction.json"))
     # the live int8 run: the same model, scales and frames, batch 2
